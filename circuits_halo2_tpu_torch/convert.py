@@ -1,0 +1,68 @@
+"""Carry state from the JAX package into the port.
+
+The inputs are the JAX package's numpy arrays (``np.asarray`` of its device
+arrays) or its host objects; nothing here imports JAX. Used by the tests so
+both packages prove from the same key and compare the same tree.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from circuits_halo2_tpu.ops import field as F
+
+from .merkle.device_tree import DeviceMst
+from .models.keygen import ProvingKey, VerifyingKey
+from .ops import field_torch as FT
+
+# the JAX tree kernels' redundant limbs: 18 x 15 bits, Montgomery R = 2^255
+_LB15 = 15
+_R15_INV = pow(1 << (15 * 17), -1, F.FR_MOD)
+
+
+def limbs16_from_jax(arr, device) -> torch.Tensor:
+    """(16, ...) uint32 exact 16-bit limbs -> int64 tensor on ``device``."""
+    return torch.as_tensor(np.asarray(arr).astype(np.int64), device=device)
+
+
+def _ints15(arr) -> list[int]:
+    """(18, N) possibly unnormalised 15-bit limbs -> N exact integers."""
+    a = np.asarray(arr).astype(object)
+    vals = a[0].copy()
+    for i in range(1, a.shape[0]):
+        vals = vals + (a[i] << (_LB15 * i))
+    return [int(v) for v in vals]
+
+
+def _mont16(vals15, device) -> torch.Tensor:
+    """R15-Montgomery (non-canonical) ints -> the port's R256 Montgomery limbs."""
+    p = F.FR_MOD
+    return torch.as_tensor(FT.to_mont_limbs([v * _R15_INV % p for v in vals15]), device=device)
+
+
+def device_mst_from_jax(tree, device) -> DeviceMst:
+    """The JAX ``DeviceMst`` (18 x 15-bit fat hash / raw balance levels) as
+    the port's tree: hashes and usernames in R256 Montgomery form, balance
+    sums as exact 16-bit limbs."""
+    hashes = [_mont16(_ints15(h), device) for h in tree.level_hashes]
+    balances = [
+        torch.stack([torch.as_tensor(FT.ints_to_limbs(_ints15(b[c])), device=device)
+                     for c in range(tree.n_currencies)])
+        for b in tree.level_balances
+    ]
+    user = _mont16(_ints15(tree.user_limbs), device)
+    return DeviceMst(hashes, balances, tree.depth, tree.n_currencies, user)
+
+
+def proving_key_from_jax(pk) -> ProvingKey:
+    """The JAX ``ProvingKey`` (and its ``VerifyingKey``) as the port's. Both
+    hold host ints; the constraint system object is shared."""
+    jvk = pk.vk
+    vk = VerifyingKey(
+        jvk.k, jvk.cs, list(jvk.fixed_commitments), list(jvk.permutation_commitments),
+        [list(c) for c in jvk.fixed_values], [list(c) for c in jvk.sigma_values], jvk.omega,
+        jvk.transcript_repr,
+    )
+    return ProvingKey(vk, [list(c) for c in pk.fixed_polys], [list(c) for c in pk.sigma_polys],
+                      list(pk.l0), list(pk.l_last), list(pk.l_active_row))

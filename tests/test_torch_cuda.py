@@ -1,0 +1,115 @@
+"""The CUDA kernels on the card: K1 and K3 against their plain torch versions
+at ragged and main-path shapes, and the device tree and the Pippenger on the
+card against the same code on the CPU and the native host code. Exact.
+
+Every test is marked ``cuda`` and skips without a CUDA device (the kernels
+have no CPU mode). The file imports no JAX, so it runs where JAX is absent:
+
+    CIRCUITS_TPU_NO_CACHE=1 python -m pytest tests/test_torch_cuda.py -o addopts="" -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from circuits_halo2_tpu_torch import native
+from circuits_halo2_tpu_torch.merkle import device_tree as TDT
+from circuits_halo2_tpu_torch.ops import field_torch as FT
+from circuits_halo2_tpu_torch.ops import msm as TM
+from circuits_halo2_tpu_torch.ops import msm_kernel as MK
+from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
+
+torch.set_num_threads(2)
+
+G1_GEN = (1, 2)
+FR_MOD, FQ_MOD = FT.FR.mod_int, FT.FQ.mod_int
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _fr(rng, count):
+    return [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(count)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [2, 3, 4])
+@pytest.mark.parametrize("n", [1, 3000])  # a single message and a ragged last block
+def test_k1_matches_plain(dev, length, n):
+    rng = np.random.default_rng(length * n)
+    cols = [_fr(rng, n) for _ in range(length)]
+    cols[0][0] = 0
+    cols[-1][-1] = FR_MOD - 1
+    inp = torch.stack([torch.as_tensor(FT.to_mont_limbs(c), device=dev) for c in cols])
+    before = PK.hash_batch.launches
+    got = PK.hash_batch(inp)
+    assert PK.hash_batch.launches == before + 1
+    assert got.device == inp.device and got.shape == (16, n)
+    assert torch.equal(got, PK.hash_batch_ref(inp))
+    assert FT.from_mont_ints(got[:, :8]) == native.poseidon_hash_batch(
+        [[c[i] for c in cols] for i in range(min(n, 8))], length)
+
+
+def _scan_inputs(dev, n, B, W, seed):
+    """Digit-sorted K3 inputs with invalid points, repeats (doubling) and
+    P + (-P) inside buckets."""
+    rng = np.random.default_rng(seed)
+    base = native.g1_fixed_base_muls(G1_GEN, [int(v) for v in rng.integers(1, 10**9, 6)])
+    pts = [base[i] for i in rng.integers(0, 6, n)]
+    pts[10] = (pts[9][0], FQ_MOD - pts[9][1])
+    xs = torch.as_tensor(FT.to_mont_limbs([p[0] for p in pts], FT.FQ), device=dev)
+    ys = torch.as_tensor(FT.to_mont_limbs([p[1] for p in pts], FT.FQ), device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[[5, n // 2 + 1]] = False
+    digits = torch.as_tensor(np.sort(rng.integers(0, 3, (B, W, n)), axis=-1), device=dev)
+    px = xs[:, None, None, :].expand(16, B, W, n).contiguous()
+    py = ys[:, None, None, :].expand(16, B, W, n).contiguous()
+    return px, py, valid.expand(B, W, n).contiguous(), digits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B,W", [(256, 2, 4), (2048, 1, 32)])
+def test_k3_matches_plain(dev, n, B, W):
+    px, py, pv, digits = _scan_inputs(dev, n, B, W, seed=n)
+    L = TM._seg_chunk_len(n)
+    before = MK.segmented_scan.launches
+    got = MK.segmented_scan(px, py, pv, digits, L)
+    assert MK.segmented_scan.launches == before + 1
+    want = MK.segmented_scan_ref(px, py, pv, digits, L)
+    for g, w in zip(got, want):
+        assert g.device == px.device and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_device_tree_matches_cpu(dev):
+    """Depth 7 with near-u64 balances: every level equal on the card and the CPU."""
+    rng = np.random.default_rng(7)
+    n = 1 << 7
+    digests = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
+    balances = rng.integers(1 << 63, 1 << 64, size=(n, 2), dtype=np.uint64)
+    card = TDT.build_device_tree(digests, balances, dev)
+    host = TDT.build_device_tree(digests, balances, "cpu")
+    assert card.root() == host.root()
+    for a, b in zip(card.level_hashes + card.level_balances,
+                    host.level_hashes + host.level_balances):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_msm_commit_dev_matches_native(dev):
+    rng = np.random.default_rng(11)
+    n = 1 << 11
+    points = native.g1_fixed_base_muls(G1_GEN, _fr(rng, n))
+    points[3] = None
+    points[7] = (points[6][0], FQ_MOD - points[6][1])
+    rows = [_fr(rng, n) for _ in range(3)]
+    rows[0][0], rows[0][1] = 0, FR_MOD - 1
+    rows[0][6] = rows[0][7]
+    rows[1] = [0] * n
+    want = [native.g1_msm(points, r) for r in rows]
+    assert TM.msm_auto_batch(points, rows, dev) == want
+    assert TM.msm_auto_batch(points, rows, "cpu") == want
