@@ -6,8 +6,9 @@ a checkout builds what it needs on first call and never loads a binary made
 from other sources. Builds write to a temporary name and rename it into
 place, so concurrent processes may race without harm.
 
-The CUDA kernels (``csrc/*.cu``) are compiled by ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, loaded through ctypes.
+The CUDA kernels (``csrc/*.cu``) are compiled by ``nvcc`` for ``sm_90a``,
+one ``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded through ctypes.
 """
 
 from __future__ import annotations
@@ -23,10 +24,10 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
-CUDA_SOURCES = ("poseidon.cu", "msm_scan.cu")
+CUDA_SOURCES = ("poseidon.cu", "msm_scan.cu", "poseidon_mxu.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -64,15 +65,30 @@ def compile_cuda() -> tuple[Path, float, str]:
     out = cuda_library_path()
     if out.exists():
         return out, 0.0, ""
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in CUDA_SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{Path(s).stem}.o") for s in CUDA_SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for s, o in zip(CUDA_SOURCES, objs)]
+    logs = []
+    for s, proc in zip(CUDA_SOURCES, procs):
+        _, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            for other in procs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed on {s} ({proc.returncode}):\n{err}")
+        logs.append(err)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True, timeout=300)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
     os.replace(tmp, out)
-    return out, seconds, proc.stderr
+    return out, time.perf_counter() - t0, "".join(logs)
 
 
 def cuda_library() -> ctypes.CDLL:
@@ -85,9 +101,15 @@ def cuda_library() -> ctypes.CDLL:
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.poseidon_set_constants.argtypes = [vp, vp]
             lib.poseidon_hash_batch_cuda.argtypes = [vp, vp, i32, i64, vp, vp]
+            lib.poseidon_permute_cuda.argtypes = [vp, vp, vp, vp, i64, vp]
             lib.msm_scan_cuda.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i64, vp]
+            lib.poseidon_mxu_set_constants.argtypes = [vp, vp, vp]
+            lib.poseidon_mxu_hash_batch_cuda.argtypes = [vp, vp, i32, i64, vp, vp]
+            lib.poseidon_mxu_probe_cuda.argtypes = [i32, vp, vp, vp, i64, i32, vp]
             for fn in (lib.poseidon_set_constants, lib.poseidon_hash_batch_cuda,
-                       lib.msm_scan_cuda):
+                       lib.poseidon_permute_cuda, lib.msm_scan_cuda,
+                       lib.poseidon_mxu_set_constants, lib.poseidon_mxu_hash_batch_cuda,
+                       lib.poseidon_mxu_probe_cuda):
                 fn.restype = ctypes.c_int
             _cuda = lib
     return _cuda

@@ -10,10 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from circuits_halo2_tpu.ops import field as F
-
 from .merkle.device_tree import DeviceMst
+from .models.cs import ConstraintSystem
 from .models.keygen import ProvingKey, VerifyingKey
+from .ops import field as F
 from .ops import field_torch as FT
 
 # the JAX tree kernels' redundant limbs: 18 x 15 bits, Montgomery R = 2^255
@@ -55,12 +55,14 @@ def device_mst_from_jax(tree, device) -> DeviceMst:
     return DeviceMst(hashes, balances, tree.depth, tree.n_currencies, user)
 
 
-def proving_key_from_jax(pk) -> ProvingKey:
+def proving_key_from_jax(pk, cs: ConstraintSystem) -> ProvingKey:
     """The JAX ``ProvingKey`` (and its ``VerifyingKey``) as the port's. Both
-    hold host ints; the constraint system object is shared."""
+    hold host ints, which are copied; ``cs`` is the port's own constraint
+    system of the same circuit (from the port's ``compile_circuit``), so the
+    key shares no object with the JAX package."""
     jvk = pk.vk
     vk = VerifyingKey(
-        jvk.k, jvk.cs, list(jvk.fixed_commitments), list(jvk.permutation_commitments),
+        jvk.k, cs, list(jvk.fixed_commitments), list(jvk.permutation_commitments),
         [list(c) for c in jvk.fixed_values], [list(c) for c in jvk.sigma_values], jvk.omega,
         jvk.transcript_repr,
     )

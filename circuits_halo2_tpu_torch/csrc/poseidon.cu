@@ -1,4 +1,5 @@
-// K1: ConstantLength<L> Poseidon sponge over BN254 Fr, one message per thread.
+// K1: ConstantLength<L> Poseidon sponge over BN254 Fr, one message per thread,
+// and K2: one bare permutation per thread (below).
 //
 // Replaces: circuits_halo2_tpu/ops/poseidon_pallas2.py::hash_batch_pallas2
 // (kernel body _sponge_kernel), which hashes every level of the Merkle sum
@@ -95,6 +96,30 @@ __global__ void poseidon_sponge_kernel(const uint32_t* __restrict__ in,
     for (int w = 0; w < 8; ++w) out[(int64_t)w * n + idx] = d[w];
 }
 
+// K2: one permutation of n states (s0, s1), each (8, n) Montgomery words,
+// one state per thread. Replaces poseidon_pallas2.py::permute_tiles; same
+// bound and design as the sponge above (integer multiply issue, state in
+// registers, constants in __constant__ memory, ragged tail masked).
+__global__ void poseidon_permute_kernel(const uint32_t* __restrict__ s0_in,
+                                        const uint32_t* __restrict__ s1_in,
+                                        uint32_t* __restrict__ s0_out,
+                                        uint32_t* __restrict__ s1_out, int64_t n) {
+    int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= n) return;
+    uint32_t s0[8], s1[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+        s0[w] = s0_in[(int64_t)w * n + idx];
+        s1[w] = s1_in[(int64_t)w * n + idx];
+    }
+    pos_permute(s0, s1, POS_RC, POS_MDS);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+        s0_out[(int64_t)w * n + idx] = s0[w];
+        s1_out[(int64_t)w * n + idx] = s1[w];
+    }
+}
+
 extern "C" int poseidon_set_constants(const uint32_t* rc, const uint32_t* mds) {
     cudaMemcpyToSymbol(POS_RC, rc, sizeof(POS_RC));
     cudaMemcpyToSymbol(POS_MDS, mds, sizeof(POS_MDS));
@@ -111,6 +136,17 @@ extern "C" int poseidon_hash_batch_cuda(const uint32_t* in, uint32_t* out, int L
     if (blocks > 0)
         poseidon_sponge_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
             in, out, L, n, c);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int poseidon_permute_cuda(const uint32_t* s0_in, const uint32_t* s1_in,
+                                     uint32_t* s0_out, uint32_t* s1_out, int64_t n,
+                                     void* stream) {
+    const int threads = 256;
+    const int64_t blocks = (n + threads - 1) / threads;
+    if (blocks > 0)
+        poseidon_permute_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+            s0_in, s1_in, s0_out, s1_out, n);
     return (int)cudaGetLastError();
 }
 #endif

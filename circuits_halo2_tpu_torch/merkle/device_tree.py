@@ -11,6 +11,10 @@
   up; exact raw sums keep every value small and every level exact;
 - every level is one K1 launch (``ops/poseidon_kernel.hash_batch``);
 - only the root and queried nodes come back to the host.
+
+``tree_root_mxu`` computes the same root through K4
+(``ops/poseidon_mxu.hash_batch_mxu``), the tensor-core sponge of plain
+residues: raw digests and raw sums go in with no Montgomery conversion.
 """
 
 from __future__ import annotations
@@ -18,10 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from circuits_halo2_tpu.ops import field as F
-
+from ..ops import field as F
 from ..ops import field_torch as FT
 from ..ops import poseidon_kernel as PK
+from ..ops import poseidon_mxu as PM
 
 P = F.FR_MOD
 
@@ -126,3 +130,22 @@ def build_device_tree(hashed_usernames: np.ndarray, balances: np.ndarray, device
         level_hashes.append(PK.hash_batch(pre))
         level_balances.append(sums)
     return DeviceMst(level_hashes, level_balances, depth, ncur, user)
+
+
+def tree_root_mxu(hashed_usernames: np.ndarray, balances: np.ndarray, device="cuda:0"):
+    """(root_hash, [root_balances]) of the tree ``build_device_tree`` builds,
+    level by level through K4: leaves hash (raw digest, balances), every
+    level above hashes (raw sums, left hash, right hash)."""
+    n, ncur = balances.shape
+    depth = (n - 1).bit_length()
+    if n != 1 << depth:
+        raise ValueError("entry count must be a power of two")
+    user = torch.as_tensor(digests_to_limbs16(hashed_usernames), device=device)
+    sums = torch.stack([torch.as_tensor(u64_to_limbs16(balances[:, c]), device=device)
+                        for c in range(ncur)])
+    hashes = PM.hash_batch_mxu(torch.cat([user[None], sums]))
+    for _ in range(depth):
+        sums = _add_raw(sums[:, :, 0::2], sums[:, :, 1::2])
+        hashes = PM.hash_batch_mxu(torch.cat([sums, hashes[None, :, 0::2], hashes[None, :, 1::2]]))
+    return (FT.limbs_to_ints(hashes[:, :1])[0],
+            [FT.limbs_to_ints(sums[c, :, :1])[0] % P for c in range(ncur)])

@@ -16,9 +16,8 @@ from dataclasses import dataclass
 
 import torch
 
-from circuits_halo2_tpu.ops import field as F
-
 from .. import native
+from ..ops import field as F
 from ..ops import field_torch as FT
 from ..ops import poseidon
 from ..ops import poseidon_kernel as PK
@@ -183,12 +182,13 @@ class MerkleSumTree:
         self.cryptocurrencies = cryptocurrencies
 
     @classmethod
-    def from_csv(cls, path: str, device="cpu") -> "MerkleSumTree":
+    def from_csv(cls, path: str, device="cuda:0") -> "MerkleSumTree":
         cryptos, entries = parse_csv_to_entries(path)
         return cls.from_entries(entries, cryptos, device)
 
     @classmethod
-    def from_entries(cls, entries: list[Entry], cryptocurrencies, device="cpu") -> "MerkleSumTree":
+    def from_entries(cls, entries: list[Entry], cryptocurrencies,
+                     device="cuda:0") -> "MerkleSumTree":
         n_currencies = len(entries[0].balances)
         depth = (len(entries) - 1).bit_length() if len(entries) > 1 else 0
         entries = entries + [Entry.zero_entry(n_currencies)

@@ -12,14 +12,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from circuits_halo2_tpu.models.assignment import Assignment
-from circuits_halo2_tpu.models.cs import Column, ConstraintSystem
-from circuits_halo2_tpu.ops import field as F
-from circuits_halo2_tpu.utils.srs import ParamsKZG
-
+from ..ops import field as F
 from ..ops import msm as MSM
 from ..ops import ntt as NTT
 from ..utils.poly_device import intt_cols
+from ..utils.srs import ParamsKZG
+from .assignment import Assignment
+from .cs import Column, ConstraintSystem
 
 # DELTA: generator of the order-(p-1)/2^28 subgroup, halo2curves bn256 Fr.
 # Cross-checked against the generated verifier's hard-coded delta

@@ -16,14 +16,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from circuits_halo2_tpu.models.assignment import Assignment, Region
-from circuits_halo2_tpu.models.chips import MerkleSumTreeChip, RangeCheckChip
-from circuits_halo2_tpu.models.cs import ConstraintSystem
-from circuits_halo2_tpu.ops.field import FR_MOD
-
+from . import pow5
 from ..merkle.mst import MerkleProof
 from ..ops import poseidon
-from . import pow5
+from ..ops.field import FR_MOD
+from .assignment import Assignment, Region
+from .chips import MerkleSumTreeChip, RangeCheckChip
+from .cs import ConstraintSystem
 
 
 @dataclass

@@ -16,10 +16,9 @@ from __future__ import annotations
 
 import hashlib
 
-from circuits_halo2_tpu.models import expr as E
-from circuits_halo2_tpu.models.cs import Column
-from circuits_halo2_tpu.ops.field import FQ_MOD, FR_MOD
-
+from . import expr as E
+from ..ops.field import FQ_MOD, FR_MOD
+from .cs import Column
 from .keygen import VerifyingKey
 
 

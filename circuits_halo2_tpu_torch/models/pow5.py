@@ -24,12 +24,11 @@ Region layout: permutation region = 37 rows (4 full, 28 double-partial,
 
 from __future__ import annotations
 
-from circuits_halo2_tpu.models import expr as E
-from circuits_halo2_tpu.models.assignment import Assignment, Cell, Region
-from circuits_halo2_tpu.models.cs import Column, ConstraintSystem
-from circuits_halo2_tpu.ops.field import FR_MOD
-
+from . import expr as E
 from ..ops import poseidon as P
+from ..ops.field import FR_MOD
+from .assignment import Assignment, Cell, Region
+from .cs import Column, ConstraintSystem
 
 WIDTH = 2
 RATE = 1

@@ -21,14 +21,13 @@ import hashlib
 
 import torch
 
-from circuits_halo2_tpu.models.assignment import Assignment
-from circuits_halo2_tpu.ops import field as F
-from circuits_halo2_tpu.utils.srs import ParamsKZG
-
+from ..ops import field as F
 from ..ops import field_torch as FT
 from ..ops import msm as MSM
 from ..utils import poly_device as PD
+from ..utils.srs import ParamsKZG
 from ..utils.transcript import KeccakTranscript
+from .assignment import Assignment
 from .keygen import DELTA, ProvingKey
 from .verifier import num_perm_sets, perm_chunk_len, rotation_sets
 

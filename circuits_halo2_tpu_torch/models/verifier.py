@@ -13,13 +13,12 @@ implemented generically over the compiled ConstraintSystem.
 
 from __future__ import annotations
 
-from circuits_halo2_tpu.models.cs import ConstraintSystem
-from circuits_halo2_tpu.ops import curve as C
-from circuits_halo2_tpu.ops import field as F
-from circuits_halo2_tpu.ops import pairing as PAIR
-from circuits_halo2_tpu.utils.srs import ParamsKZG
-
+from ..ops import curve as C
+from ..ops import field as F
+from ..ops import pairing as PAIR
+from ..utils.srs import ParamsKZG
 from ..utils.transcript import KeccakTranscript
+from .cs import ConstraintSystem
 from .keygen import DELTA, VerifyingKey
 
 P = F.FR_MOD

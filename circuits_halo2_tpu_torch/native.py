@@ -1,12 +1,11 @@
 """The port's handle on the reference's host C++ runtime.
 
-Binds the same C functions as ``circuits_halo2_tpu/native`` (host Pippenger
-``g1_msm``, fixed-base muls for SRS setup, the Poseidon sponge, Fr batch
-inversion and keccak) but never loads that package's prebuilt library: it
-compiles ``circuits_halo2_tpu/native/fieldcc.cpp`` itself with portable
-flags (no ``-march=native``) into the port's build directory, under a name
-keyed by the source's hash, so a stale or foreign binary is never loaded
-and nothing tracked by git is written.
+Binds the C functions of ``csrc/fieldcc.cpp`` (host Pippenger ``g1_msm``,
+fixed-base muls for SRS setup, the Poseidon sponge, Fr batch inversion and
+keccak), the port's copy of the reference's host C++. It is compiled with
+portable flags (no ``-march=native``) into the port's build directory,
+under a name keyed by the source's hash, so a stale or foreign binary is
+never loaded and nothing tracked by git is written.
 
 The library is required: a missing compiler raises instead of falling back.
 """
@@ -24,7 +23,7 @@ import numpy as np
 
 from . import build
 
-SRC = Path(__file__).resolve().parent.parent / "circuits_halo2_tpu" / "native" / "fieldcc.cpp"
+SRC = Path(__file__).resolve().parent / "csrc" / "fieldcc.cpp"
 _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 _ABI_VERSION = 5
 

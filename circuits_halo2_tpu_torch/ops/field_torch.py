@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from circuits_halo2_tpu.ops import field as F
+from . import field as F
 
 NLIMBS = 16
 LIMB_BITS = 16

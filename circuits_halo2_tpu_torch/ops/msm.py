@@ -27,11 +27,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from circuits_halo2_tpu.ops import field as F
-
-from .. import native
+from . import field as F
 from . import field_torch as FT
 from . import msm_kernel as MK
+from .. import native
 
 FQ = FT.FQ
 

@@ -16,8 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from circuits_halo2_tpu.ops import field as F
-
+from . import field as F
 from . import field_torch as FT
 
 

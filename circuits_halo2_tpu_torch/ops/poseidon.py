@@ -1,8 +1,8 @@
 """Poseidon over BN254 Fr (t=2, rate 1, 8 full / 56 partial rounds, x^5):
 the host half of ``circuits_halo2_tpu/ops/poseidon.py``.
 
-Constants are read by path from the JAX package's
-``ops/poseidon_constants.json`` (one source of truth). ``hash_n`` runs the
+Constants are read from ``poseidon_constants.json`` beside this module (a
+copy of the reference's, held equal to it by the tests). ``hash_n`` runs the
 native C++ sponge; ``permute`` / ``hash_n_py`` are the plain-int reference.
 The batched device sponge is ``ops/poseidon_kernel.py``.
 """
@@ -12,7 +12,7 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-from circuits_halo2_tpu.ops import field as F
+from . import field as F
 
 T = 2
 RATE = 1
@@ -20,9 +20,7 @@ R_FULL = 8
 R_PARTIAL = 56
 N_ROUNDS = R_FULL + R_PARTIAL
 
-CONSTANTS_PATH = (
-    Path(__file__).resolve().parents[2] / "circuits_halo2_tpu" / "ops" / "poseidon_constants.json"
-)
+CONSTANTS_PATH = Path(__file__).resolve().parent / "poseidon_constants.json"
 _data = json.loads(CONSTANTS_PATH.read_text())
 ROUND_CONSTANTS: list[list[int]] = [[int(a, 16), int(b, 16)] for a, b in _data["round_constants"]]
 MDS: list[list[int]] = [[int(x, 16) for x in row] for row in _data["mds"]]

@@ -1,11 +1,14 @@
-"""K1: the batched Poseidon sponge -- hand-written CUDA kernel and its plain
-torch version.
+"""K1 and K2: the batched Poseidon sponge and the bare permutation --
+hand-written CUDA kernels and their plain torch versions.
 
-Counterpart of ``circuits_halo2_tpu/ops/poseidon_pallas2.py::hash_batch_pallas2``.
-``hash_batch`` takes ``(L, 16, N)`` int64 canonical Montgomery limbs (R =
-2^256) and returns the ``(16, N)`` canonical Montgomery digests of the N
-ConstantLength<L> messages. A CPU tensor runs ``hash_batch_ref``; a CUDA
-tensor launches ``csrc/poseidon.cu`` (or raises); nothing falls back.
+Counterparts of ``poseidon_pallas2.py::hash_batch_pallas2`` (K1) and
+``::permute_tiles`` (K2) in the JAX package. ``hash_batch`` takes
+``(L, 16, N)`` int64 canonical Montgomery limbs (R = 2^256) and returns the
+``(16, N)`` canonical Montgomery digests of the N ConstantLength<L>
+messages; ``permute`` takes two ``(16, N)`` such tensors (s0, s1) and
+returns the permuted pair. A CPU tensor runs the plain version
+(``hash_batch_ref`` / ``permute_ref``); a CUDA tensor launches
+``csrc/poseidon.cu`` (or raises); nothing falls back.
 """
 
 from __future__ import annotations
@@ -15,11 +18,10 @@ import functools
 import numpy as np
 import torch
 
-from circuits_halo2_tpu.ops import field as F
-
-from .. import build
+from . import field as F
 from . import field_torch as FT
 from . import poseidon as PS
+from .. import build
 
 
 def _mont(x: int) -> int:
@@ -49,7 +51,7 @@ def _ref_tables(device: str):
 
 
 def permute_ref(s0: torch.Tensor, s1: torch.Tensor):
-    """Batched permutation on (16, N) Montgomery limbs."""
+    """Batched permutation on (16, N) canonical Montgomery limbs."""
     rc, mds = _ref_tables(str(s0.device))
     for r in range(PS.N_ROUNDS):
         full = r < PS.R_FULL // 2 or r >= PS.R_FULL // 2 + PS.R_PARTIAL
@@ -116,3 +118,29 @@ def hash_batch(inputs: torch.Tensor) -> torch.Tensor:
 
 
 hash_batch.launches = 0
+
+
+def permute(s0: torch.Tensor, s1: torch.Tensor):
+    """(16, N), (16, N) Montgomery limbs -> the permuted (s0, s1)."""
+    for x in (s0, s1):
+        if x.dim() != 2 or x.shape[0] != FT.NLIMBS or x.dtype != FT.DTYPE:
+            raise ValueError(f"permute wants (16, N) int64, got {tuple(x.shape)} {x.dtype}")
+    if s0.shape != s1.shape or s0.device != s1.device:
+        raise ValueError("permute: s0 and s1 differ in shape or device")
+    if s0.device.type == "cpu":
+        return permute_ref(s0, s1)
+    if s0.device.type != "cuda":
+        raise ValueError(f"permute: unsupported device {s0.device}")
+    lib = _kernel_lib()
+    n = s0.shape[1]
+    w0, w1 = FT.limbs_to_words(s0, 0), FT.limbs_to_words(s1, 0)
+    o0, o1 = torch.empty_like(w0), torch.empty_like(w1)
+    stream = torch.cuda.current_stream(s0.device).cuda_stream
+    permute.launches += 1
+    build.check(lib.poseidon_permute_cuda(w0.data_ptr(), w1.data_ptr(), o0.data_ptr(),
+                                          o1.data_ptr(), n, stream),
+                "poseidon_permute_cuda")
+    return FT.words_to_limbs(o0, 0), FT.words_to_limbs(o1, 0)
+
+
+permute.launches = 0

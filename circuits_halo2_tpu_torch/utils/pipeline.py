@@ -10,12 +10,11 @@ from dataclasses import dataclass
 
 import torch
 
-from circuits_halo2_tpu.ops.field import FR_MOD
-
 from ..models.keygen import ProvingKey, VerifyingKey, keygen
 from ..models.mst_inclusion import MstInclusionCircuit, compile_circuit
 from ..models.prover import BlindingRng, prove
 from ..models.verifier import verify
+from ..ops.field import FR_MOD
 from .srs import ParamsKZG, setup_cached
 from .transcript import Blake2bTranscript, KeccakTranscript
 

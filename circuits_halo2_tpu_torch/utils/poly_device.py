@@ -12,9 +12,8 @@ import functools
 
 import torch
 
-from circuits_halo2_tpu.ops import field as F
-
 from .. import native
+from ..ops import field as F
 from ..ops import field_torch as FT
 from ..ops import ntt as NTT
 

@@ -1,6 +1,16 @@
-"""KZG parameters: the JAX package's ``ParamsKZG`` (file I/O, attributes)
-with an unsafe deterministic ``setup`` computed through the port's native
-library, and an on-disk cache of it in the build directory.
+"""KZG structured reference string (SRS) — the halo2 ``ParamsKZG`` equivalent.
+
+Raw file format (the reference's ``backend/ptau/hermez-raw-11`` layout):
+
+    u32 k (LE)
+    2^k  G1 points, monomial basis  [s^i]G      (64-byte raw affine, LE)
+    2^k  G1 points, Lagrange basis  [L_i(s)]G   (64-byte raw affine, LE)
+    G2 generator                                 (128-byte raw affine)
+    [s]G2                                        (128-byte raw affine)
+
+``setup(k, seed)`` is the unsafe deterministic testing setup, computed
+through the port's native library, and ``setup_cached`` keeps it on disk in
+the build directory.
 """
 
 from __future__ import annotations
@@ -8,18 +18,51 @@ from __future__ import annotations
 import hashlib
 import os
 
-from circuits_halo2_tpu.ops import curve as C
-from circuits_halo2_tpu.ops import field as F
-from circuits_halo2_tpu.utils import srs as _srs
-
 from .. import build, native
+from ..ops import curve as C
+from ..ops import field as F
 from ..ops import ntt as NTT
 
 DEFAULT_SEED = b"circuits-halo2-tpu-test-srs"
 
 
-class ParamsKZG(_srs.ParamsKZG):
+class ParamsKZG:
     """SRS with ``g`` (monomial) and ``g_lagrange`` G1 bases and the G2 pair."""
+
+    def __init__(self, k: int, g, g_lagrange, g2, s_g2):
+        self.k = k
+        self.n = 1 << k
+        self.g = g                    # monomial basis commitments [s^i]G1
+        self.g_lagrange = g_lagrange  # Lagrange basis commitments
+        self.g2 = g2
+        self.s_g2 = s_g2
+
+    @classmethod
+    def read(cls, path: str) -> "ParamsKZG":
+        with open(path, "rb") as f:
+            data = f.read()
+        k = int.from_bytes(data[:4], "little")
+        n = 1 << k
+        ofs = 4
+        g = [C.g1_from_raw_bytes(data[ofs + 64 * i : ofs + 64 * (i + 1)]) for i in range(n)]
+        ofs += 64 * n
+        g_lagrange = [
+            C.g1_from_raw_bytes(data[ofs + 64 * i : ofs + 64 * (i + 1)]) for i in range(n)
+        ]
+        ofs += 64 * n
+        g2 = C.g2_from_raw_bytes(data[ofs : ofs + 128])
+        s_g2 = C.g2_from_raw_bytes(data[ofs + 128 : ofs + 256])
+        return cls(k, g, g_lagrange, g2, s_g2)
+
+    def write(self, path: str) -> None:
+        with open(path, "wb") as f:
+            f.write(self.k.to_bytes(4, "little"))
+            for p in self.g:
+                f.write(C.g1_to_raw_bytes(p))
+            for p in self.g_lagrange:
+                f.write(C.g1_to_raw_bytes(p))
+            f.write(C.g2_to_raw_bytes(self.g2))
+            f.write(C.g2_to_raw_bytes(self.s_g2))
 
     @classmethod
     def setup(cls, k: int, seed: bytes = DEFAULT_SEED) -> "ParamsKZG":

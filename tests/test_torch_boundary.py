@@ -1,9 +1,11 @@
-"""The port's boundaries: it imports no JAX, a kernel wrapper given a CUDA
-tensor launches or raises (never falls back to its plain version), and
-``chip_smoke.py`` fails, printing no result, where there is no GPU or no
-repository around it."""
+"""The port's boundaries: it imports nothing of JAX or of the JAX package
+and reads no file inside that package, a kernel wrapper given a CUDA tensor
+launches or raises (never falls back to its plain version), its entry
+points default to the card, and ``chip_smoke.py`` fails, printing no
+result, where there is no GPU or no repository around it."""
 
 import ast
+import inspect
 import shutil
 import subprocess
 import sys
@@ -13,13 +15,19 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+from circuits_halo2_tpu_torch.merkle.mst import MerkleSumTree
 from circuits_halo2_tpu_torch.ops import field_torch as FT
 from circuits_halo2_tpu_torch.ops import msm_kernel as MK
 from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
+from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
+from circuits_halo2_tpu_torch.scripts import exp_poseidon_mxu as EXP
 
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "circuits_halo2_tpu_torch"
+PORT_PY = sorted(str(f.relative_to(ROOT)) for f in PORT.rglob("*.py") if "_build" not in f.parts)
+PORT_CSRC = sorted(str(f.relative_to(ROOT)) for f in (PORT / "csrc").iterdir() if f.is_file())
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -30,8 +38,7 @@ for name in names:
 import chip_smoke
 sys.path.insert(0, "tests")
 import test_torch_cuda
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-             or m == "circuits_halo2_tpu.native")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "circuits_halo2_tpu"))
 print(len(names), bad)
 sys.exit(1 if bad or len(names) < 20 else 0)
 """
@@ -44,14 +51,53 @@ def test_port_and_chip_smoke_import_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "tests/test_torch_cuda.py"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "tests/test_torch_cuda.py", *PORT_PY])
 def test_card_side_files_import_only_the_port(path):
-    """What runs on the card names no module of JAX or of the JAX package."""
+    """What runs on the card, every module of the port included, names no
+    module of JAX or of the JAX package."""
     tree = ast.parse((ROOT / path).read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
     bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "circuits_halo2_tpu")]
     assert not bad, bad
+
+
+def _strings_outside_docstrings(tree):
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+def _names_jax_package(text: str) -> bool:
+    return any(part.startswith("circuits_halo2_tpu") and not part.startswith("circuits_halo2_tpu_torch")
+               for part in text.replace("\\", "/").replace(".", "/").split("/"))
+
+
+@pytest.mark.parametrize("path", PORT_PY + PORT_CSRC)
+def test_port_files_name_no_path_in_the_jax_package(path):
+    """No string a port module computes with (docstrings aside), and no
+    ``#include`` of a kernel source, names the JAX package or a file in it."""
+    text = (ROOT / path).read_text()
+    if path.endswith(".py"):
+        found = [s for s in _strings_outside_docstrings(ast.parse(text)) if _names_jax_package(s)]
+    else:
+        found = [line for line in text.splitlines()
+                 if line.lstrip().startswith("#include") and _names_jax_package(line)]
+    assert not found, found
+
+
+def test_name_check_catches_the_old_paths():
+    old = 'SRC = Path(__file__).parent.parent / "circuits_halo2_tpu" / "native" / "fieldcc.cpp"'
+    assert any(_names_jax_package(s) for s in _strings_outside_docstrings(ast.parse(old)))
+    assert not _names_jax_package("circuits_halo2_tpu_torch/csrc/poseidon.cu")
+
+
+def test_tree_entry_points_default_to_the_card():
+    for fn in (MerkleSumTree.from_csv, MerkleSumTree.from_entries):
+        assert inspect.signature(fn).parameters["device"].default == "cuda:0"
 
 
 def _fake_cuda(shape):
@@ -75,9 +121,21 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
         raise AssertionError("fell back to the plain version")
 
     monkeypatch.setattr(PK, "hash_batch_ref", no_fallback)
+    monkeypatch.setattr(PK, "permute_ref", no_fallback)
+    monkeypatch.setattr(PM, "hash_batch_mxu_ref", no_fallback)
+    monkeypatch.setattr(PM, "mul_ref", no_fallback)
     monkeypatch.setattr(MK, "segmented_scan_ref", no_fallback)
+    monkeypatch.setattr(EXP, "run_ref", no_fallback)
     with pytest.raises(RuntimeError):
         PK.hash_batch(_fake_cuda((3, 16, 128)))
+    with pytest.raises(RuntimeError):
+        PK.permute(_fake_cuda((16, 100)), _fake_cuda((16, 100)))
+    with pytest.raises(RuntimeError):
+        PM.hash_batch_mxu(_fake_cuda((2, 16, 100)))
+    with pytest.raises(RuntimeError):
+        EXP.run("mxu_mul", _fake_cuda((16, 100)), _fake_cuda((16, 100)), 4)
+    with pytest.raises(RuntimeError):
+        EXP.mxu_mul_once(_fake_cuda((16, 100)), _fake_cuda((16, 100)))
     pts = _fake_cuda((16, 2, 64))
     flags = SimpleNamespace(shape=torch.Size((2, 64)))
     with pytest.raises(RuntimeError):
@@ -88,6 +146,12 @@ def test_wrappers_reject_other_devices():
     meta = torch.empty((2, 16, 8), dtype=FT.DTYPE, device="meta")
     with pytest.raises(ValueError):
         PK.hash_batch(meta)
+    with pytest.raises(ValueError):
+        PK.permute(meta[0], meta[1])
+    with pytest.raises(ValueError):
+        PM.hash_batch_mxu(meta)
+    with pytest.raises(ValueError):
+        EXP.run("vpu_mul", meta[0], meta[1], 1)
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):

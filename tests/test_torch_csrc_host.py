@@ -1,10 +1,11 @@
 """The CUDA kernels' per-thread code, compiled for the host with g++.
 
-``csrc/bn254.cuh`` and the per-thread functions of ``csrc/poseidon.cu`` and
-``csrc/msm_scan.cu`` also compile as plain C++ (``BN_HD``); the
-``__global__`` launchers do not. A small harness runs the sponge and the
-lane scan exactly as one CUDA thread would and the results are held to
-the plain torch versions. Exact. The launches themselves are checked on
+``csrc/bn254.cuh`` and the per-thread functions of ``csrc/poseidon.cu``,
+``csrc/msm_scan.cu`` and ``csrc/poseidon_mxu.cu`` also compile as plain C++
+(``BN_HD``); the ``__global__`` launchers do not. A small harness runs the
+sponges, the bare permutation and the lane scan exactly as one CUDA thread
+would (K4's matrix product done by a plain loop in place of the tensor
+cores) and the results are held to the plain torch versions. Exact. The launches themselves are checked on
 the card (``chip_smoke.py``, ``-m cuda`` tests)."""
 
 import shutil
@@ -23,6 +24,7 @@ from circuits_halo2_tpu_torch.ops import msm as TM
 from circuits_halo2_tpu_torch.ops import msm_kernel as MK
 from circuits_halo2_tpu_torch.ops import poseidon as PS
 from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
+from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
 
 torch.set_num_threads(2)
 
@@ -36,6 +38,7 @@ HARNESS = r"""
 #include <vector>
 #include "poseidon.cu"
 #include "msm_scan.cu"
+#include "poseidon_mxu.cu"
 
 template <class T> static std::vector<T> take(size_t n) {
     std::vector<T> v(n);
@@ -47,17 +50,31 @@ int main(int argc, char** argv) {
     std::string mode = argv[1];
     int L = atoi(argv[2]);
     long n = atol(argv[3]);
-    if (mode == "sponge") {
+    if (mode == "sponge" || mode == "permute" || mode == "mxu_sponge") {
         static uint32_t rc[64][2][8], mds[2][2][8];
+        static uint8_t w[32 * 64];
+        if (mode == "mxu_sponge") memcpy(w, take<uint8_t>(sizeof w).data(), sizeof w);
         auto r = take<uint32_t>(64 * 2 * 8), m = take<uint32_t>(32), cap = take<uint32_t>(8);
         memcpy(rc, r.data(), sizeof rc);
         memcpy(mds, m.data(), sizeof mds);
         auto in = take<uint32_t>((size_t)L * 8 * n);
         std::vector<uint32_t> out(8 * n);
+        const mxu::HostReducer red{w};
         for (long i = 0; i < n; ++i) {
             uint32_t d[8];
-            pos_sponge(in.data(), L, n, i, cap.data(), d, rc, mds);
-            for (int w = 0; w < 8; ++w) out[w * n + i] = d[w];
+            if (mode == "sponge") {
+                pos_sponge(in.data(), L, n, i, cap.data(), d, rc, mds);
+            } else if (mode == "mxu_sponge") {
+                mxu::sponge(red, in.data(), L, n, i, true, cap.data(), d, rc, mds);
+            } else {  // permute: L = 2 words, s0 then s1
+                uint32_t s1[8];
+                for (int k = 0; k < 8; ++k) {
+                    d[k] = in[k * n + i];
+                    s1[k] = in[(8 + k) * n + i];
+                }
+                pos_permute(d, s1, rc, mds);
+            }
+            for (int k = 0; k < 8; ++k) out[k * n + i] = d[k];
         }
         fwrite(out.data(), 4, out.size(), stdout);
     } else {
@@ -113,6 +130,43 @@ def test_sponge_thread_code_matches_plain(harness, length):
     got = FT.words_to_limbs(torch.as_tensor(_run(harness, "sponge", length, n, payload)
                                             .reshape(8, n)), 0)
     assert torch.equal(got, PK.hash_batch_ref(inp))
+
+
+def test_permute_thread_code_matches_plain(harness):
+    rng = np.random.default_rng(5)
+    n = 24
+    s0, s1 = ([int.from_bytes(rng.bytes(32), "little") % F.FR_MOD for _ in range(n)]
+              for _ in range(2))
+    s0[0], s1[1] = 0, F.FR_MOD - 1
+    a, b = (torch.as_tensor(FT.to_mont_limbs(v)) for v in (s0, s1))
+    rc = _words([PK._mont(c) for row in PS.ROUND_CONSTANTS for c in row]).T
+    mds = _words([PK._mont(c) for row in PS.MDS for c in row]).T
+    payload = (np.ascontiguousarray(rc).tobytes() + np.ascontiguousarray(mds).tobytes()
+               + np.zeros(8, np.int32).tobytes()
+               + FT.limbs_to_words(torch.stack([a, b]), 1).numpy().tobytes())
+    got = FT.words_to_limbs(torch.as_tensor(_run(harness, "permute", 2, n, payload)
+                                            .reshape(8, n)), 0)
+    assert torch.equal(got, PK.permute_ref(a, b)[0])
+
+
+@pytest.mark.parametrize("length", [2, 3])
+def test_mxu_sponge_thread_code_matches_plain(harness, length):
+    """K4's per-thread sponge, inputs 0, p - 1 and 2^256 - 1 (a raw value
+    above p in every limb) included."""
+    rng = np.random.default_rng(20 + length)
+    n = 6
+    cols = [[int.from_bytes(rng.bytes(32), "little") for _ in range(n)] for _ in range(length)]
+    for c in cols:
+        c[0], c[1], c[2] = 0, F.FR_MOD - 1, (1 << 256) - 1
+    inp = torch.stack([torch.as_tensor(FT.ints_to_limbs(c)) for c in cols])
+    rc = PM._words([c for row in PS.ROUND_CONSTANTS for c in row])
+    mds = PM._words([c for row in PS.MDS for c in row])
+    cap = PM._words([PK.capacity(length)])
+    payload = (PM.reduce_weights().tobytes() + rc.tobytes() + mds.tobytes() + cap.tobytes()
+               + FT.limbs_to_words(inp, 1).numpy().tobytes())
+    got = FT.words_to_limbs(torch.as_tensor(_run(harness, "mxu_sponge", length, n, payload)
+                                            .reshape(8, n)), 0)
+    assert torch.equal(got, PM.hash_batch_mxu_ref(inp))
 
 
 def test_scan_thread_code_matches_plain(harness):

@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card: K1 and K3 against their plain torch versions
-at ragged and main-path shapes, and the device tree and the Pippenger on the
-card against the same code on the CPU and the native host code. Exact.
+"""The CUDA kernels on the card: K1, K2, K3, K4 and the K5/K6 probes against
+their plain torch versions at ragged and main-path shapes, and the device
+tree and the Pippenger on the card against the same code on the CPU and the
+native host code. Exact (field elements; exact u32 for ``bcast``).
 
 Every test is marked ``cuda`` and skips without a CUDA device (the kernels
 have no CPU mode). The file imports no JAX, so it runs where JAX is absent:
@@ -18,6 +19,8 @@ from circuits_halo2_tpu_torch.ops import field_torch as FT
 from circuits_halo2_tpu_torch.ops import msm as TM
 from circuits_halo2_tpu_torch.ops import msm_kernel as MK
 from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
+from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
+from circuits_halo2_tpu_torch.scripts import exp_poseidon_mxu as EXP
 
 torch.set_num_threads(2)
 
@@ -113,3 +116,69 @@ def test_msm_commit_dev_matches_native(dev):
     want = [native.g1_msm(points, r) for r in rows]
     assert TM.msm_auto_batch(points, rows, dev) == want
     assert TM.msm_auto_batch(points, rows, "cpu") == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3000])
+def test_k2_matches_plain_and_k1(dev, n):
+    rng = np.random.default_rng(n + 1)
+    s0, s1 = _fr(rng, n), _fr(rng, n)
+    s0[0], s1[-1] = 0, FR_MOD - 1
+    a = torch.as_tensor(FT.to_mont_limbs(s0), device=dev)
+    b = torch.as_tensor(FT.to_mont_limbs(s1), device=dev)
+    before = PK.permute.launches
+    got = PK.permute(a, b)
+    assert PK.permute.launches == before + 1
+    for g, w in zip(got, PK.permute_ref(a, b)):
+        assert g.device == a.device and torch.equal(g, w)
+    cap = torch.as_tensor(FT.to_mont_limbs([1 << 64] * n), device=dev)
+    assert torch.equal(PK.permute(a, cap)[0], PK.hash_batch(a[None]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [2, 3, 4])
+@pytest.mark.parametrize("n", [1, 3000])
+def test_k4_matches_plain_and_host(dev, length, n):
+    rng = np.random.default_rng(length * n + 5)
+    cols = [[int.from_bytes(rng.bytes(32), "little") for _ in range(n)] for _ in range(length)]
+    for c in cols:
+        c[0] = 0
+        c[-1] = (1 << 256) - 1
+    if n > 1:
+        for c in cols:
+            c[1] = FR_MOD - 1
+    inp = torch.stack([torch.as_tensor(FT.ints_to_limbs(c), device=dev) for c in cols])
+    before = PM.hash_batch_mxu.launches
+    got = PM.hash_batch_mxu(inp)
+    assert PM.hash_batch_mxu.launches == before + 1
+    assert got.device == inp.device and got.shape == (16, n)
+    assert torch.equal(got, PM.hash_batch_mxu_ref(inp))
+    msgs = [[c[i] % FR_MOD for c in cols] for i in range(min(n, 8))]
+    assert FT.limbs_to_ints(got[:, :8]) == native.poseidon_hash_batch(msgs, length)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["vpu_mul", "boundary", "mxu_mul", "bcast"])
+def test_k5_matches_plain(dev, variant):
+    x, y = EXP.make_inputs(variant, 1000, 3, dev)
+    before = EXP.run.launches
+    got = EXP.run(variant, x, y, 7)
+    assert EXP.run.launches == before + 1
+    assert torch.equal(got, EXP.run_ref(variant, x, y, 7))
+
+
+@pytest.mark.cuda
+def test_k6_check(dev):
+    before = EXP.mxu_mul_once.launches
+    assert EXP.check_mxu_mul_exact(dev) == 0
+    assert EXP.mxu_mul_once.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_tree_root_mxu_matches_device_tree(dev):
+    rng = np.random.default_rng(9)
+    n = 1 << 7
+    digests = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
+    balances = rng.integers(1 << 63, 1 << 64, size=(n, 2), dtype=np.uint64)
+    assert TDT.tree_root_mxu(digests, balances, dev) == TDT.build_device_tree(
+        digests, balances, dev).root()
