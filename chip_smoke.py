@@ -47,9 +47,17 @@ G1_GEN = (1, 2)  # the BN254 G1 generator, affine
 WIDE_MUL_PER_S = 132 * 64 * 1.98e9 / 2
 INT8_OPS_PER_S = 1979e12
 BYTES_PER_S = 3.35e12
-CIOS = 136  # wide multiplies of one 8-word CIOS Montgomery product
+# Wide multiplies of the fewest-multiply field operations the port has
+# (csrc/bn254_fast.cuh): a Montgomery reduction 68 (64 word products and 8
+# quotient words, each a low half only), so a product 132 (64 + 68), a
+# squaring 104 (36 + 68), and a two-product MDS row s0·m0 + s1·m1 with one
+# reduction 196 (128 + 68).
+MUL, SQR, MUL2 = 132, 104, 196
+PERM_WIDE = 72 * (2 * SQR + MUL) + 128 * MUL2  # a permutation: 72 x^5, 64 rounds x 2 MDS rows
+MADD_WIDE = 7 * MUL + 4 * SQR  # a mixed add (madd-2007-bl): 7 products, 4 squarings
 FE = 32  # bytes of one field element as the kernels read and write it (8 u32 words)
-PERM_PRODUCTS = 472  # field products of one Poseidon permutation (t=2, 8+56 rounds)
+# K3 per point: the px and py limbs, the digit and the flag in, three limb outputs
+K3_BYTES = 2 * 16 * 8 + 8 + 1 + 3 * 16 * 8
 
 
 def log(msg: str) -> None:
@@ -109,6 +117,20 @@ def bound_ms(wide_muls=0.0, tensor_ops=0.0, nbytes=0.0) -> tuple[float, str]:
     return max(ops_s, mem_s) * 1e3, "operations" if ops_s >= mem_s else "bytes"
 
 
+def k3_work(pvalid, seg, L: int) -> tuple[int, int]:
+    """K3's work on this data: wide multiplies, one mixed add for each valid
+    point that continues a segment inside its chunk (a segment's first point
+    only starts the sum), and bytes, every input and output once."""
+    s, v = seg.reshape(-1, L), pvalid.reshape(-1, L)
+    adds = int((v[:, 1:] & (s[:, 1:] == s[:, :-1])).sum())
+    return adds * MADD_WIDE, s.numel() * K3_BYTES
+
+
+def k3_bound(pvalid, seg, L: int) -> tuple[float, str]:
+    wide, nbytes = k3_work(pvalid, seg, L)
+    return bound_ms(wide, 0, nbytes)
+
+
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -156,36 +178,50 @@ def check_k1(device, rng, report):
 
 
 def check_k3(device, rng, report):
+    """K3 against its plain version on what the Pippenger hands it: random
+    scalars with 0, p - 1 and P + (-P) at 2^11 and 2^13 (4 columns), a
+    keygen batch of 16 columns at 2^13, and skewed digits (90 % zero
+    scalars, 3 columns: bucket 0 spans whole chunks) at 2^13 and at 2^14,
+    whose chunks are twice as long."""
     from circuits_halo2_tpu_torch import native
     from circuits_halo2_tpu_torch.ops import field_torch as FT
     from circuits_halo2_tpu_torch.ops import msm as M
     from circuits_halo2_tpu_torch.ops import msm_kernel as MK
 
-    for logn in (11, 13):
+    bases = {}
+    for logn, batch, zeros in ((11, 4, 0.0), (13, 4, 0.0), (13, 16, 0.0), (13, 3, 0.9),
+                                (14, 3, 0.9)):
         n = 1 << logn
-        points = native.g1_fixed_base_muls(G1_GEN, random_fr(rng, n))
-        points[3] = None
-        points[9] = (points[8][0], FT.FQ.mod_int - points[8][1])  # -P
-        rows = [random_fr(rng, n) for _ in range(4)]
+        if logn not in bases:
+            points = native.g1_fixed_base_muls(G1_GEN, random_fr(rng, n))
+            points[3] = None
+            points[9] = (points[8][0], FT.FQ.mod_int - points[8][1])  # -P
+            bases[logn] = points
+        points = bases[logn]
+        rows = [random_fr(rng, n) for _ in range(batch)]
+        for r in rows:
+            for i in np.flatnonzero(rng.random(n) < zeros):
+                r[i] = 0
         rows[0][0], rows[0][1] = 0, FT.FR.mod_int - 1
         rows[0][8] = rows[0][9]  # P + (-P) in one bucket
-        scal = torch.as_tensor(FT.to_mont_limbs([v for r in rows for v in r]).reshape(16, 4, n),
-                               device=device)
+        scal = torch.as_tensor(
+            FT.to_mont_limbs([v for r in rows for v in r]).reshape(16, batch, n), device=device)
         xs, ys, valid = M.precompute_bases(points, device)
         px, py, pv, seg, L = sorted_scan_inputs(xs, ys, valid, scal)
         got = MK.segmented_scan(px, py, pv, seg, L)
         want = MK.segmented_scan_ref(px, py, pv, seg, L)
         err = max_abs_err(got, want)
+        what = f"n=2^{logn} batch={batch} zero scalars {zeros:.0%}"
         if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError(f"K3 differs from its plain version at n=2^{logn}")
+            raise AssertionError(f"K3 differs from its plain version at {what}")
         report["k3_err"] = max(report.get("k3_err", 0), err)
-        log(f"K3 n=2^{logn} batch=4 L={L}: limb-exact against plain torch")
-        if logn == 13:
+        log(f"K3 {what} L={L}: limb-exact against plain torch")
+        if logn == 13 and batch != 16:
             commits = M.msm_commit_dev(points, scal)
             host = [native.g1_msm(points, r) for r in rows]
             if commits != host:
-                raise AssertionError("msm_commit_dev differs from native g1_msm at 2^13")
-            log("msm_commit_dev at 2^13 x 4 (zero scalar, p-1, P+(-P), None base) == native g1_msm")
+                raise AssertionError(f"msm_commit_dev differs from native g1_msm at {what}")
+            log(f"msm_commit_dev at {what} (0, p-1, P+(-P), None base) == native g1_msm")
 
 
 def check_k2(device, rng, report):
@@ -396,7 +432,7 @@ def timings(device, rng, card, probes):
         mont = FT.to_mont(raw.movedim(1, 0)).movedim(0, 1).contiguous()
         k1 = cuda_ms(lambda: PK.hash_batch(mont), 5)
         k4 = cuda_ms(lambda: PM.hash_batch_mxu(raw), 5)
-        out[f"k1_L{length}"] = [k1, None, *bound_ms(n * length * PERM_PRODUCTS * CIOS,
+        out[f"k1_L{length}"] = [k1, None, *bound_ms(n * length * PERM_WIDE,
                                                      0, n * (length + 1) * FE)]
         wide, tensor = PM.ops_per_hash(length)
         out[f"k4_L{length}"] = [k4, None, *bound_ms(n * wide, n * tensor, n * (length + 1) * FE)]
@@ -406,7 +442,7 @@ def timings(device, rng, card, probes):
             a, b = mont[0], mont[1]
             k2 = cuda_ms(lambda: PK.permute(a, b), 5)
             k2_plain = cuda_ms(lambda: PK.permute_ref(a, b), 1, warm=False)
-            out["k2"] = [k2, k2_plain, *bound_ms(n * PERM_PRODUCTS * CIOS, 0, n * 4 * FE)]
+            out["k2"] = [k2, k2_plain, *bound_ms(n * PERM_WIDE, 0, n * 4 * FE)]
             log(f"K2 2^20: kernel {k2:.3f} ms, plain torch {k2_plain:.3f} ms, "
                 f"bound {out['k2'][2]:.3f} ms ({card})")
         log(f"2^20 L={length}: K1 {k1:.3f} ms (bound {out[f'k1_L{length}'][2]:.3f}), "
@@ -415,16 +451,22 @@ def timings(device, rng, card, probes):
 
     params = setup_cached(13)
     xs, ys, valid = M.precompute_bases(params.g_lagrange, device)
-    scal = torch.as_tensor(
-        FT.to_mont_limbs(random_fr(rng, 3 << 13)).reshape(16, 3, 1 << 13), device=device)
-    px, py, pv, seg, L = sorted_scan_inputs(xs, ys, valid, scal)
-    k_ms = cuda_ms(lambda: MK.segmented_scan(px, py, pv, seg, L), 5)
-    p_ms = cuda_ms(lambda: MK.segmented_scan_ref(px, py, pv, seg, L), 1, warm=False)
-    points = px[0].numel()  # 11 Fq products per mixed add (madd-2007-bl)
-    # per point: x, y, digit and flag (4 B each) in, the Jacobian sum out
-    out["k3"] = [k_ms, p_ms, *bound_ms(points * 11 * CIOS, 0, points * (5 * FE + 8))]
-    log(f"K3 k=13 commit batch 3 (lanes {points // L}, L={L}): kernel {k_ms:.3f} ms, "
-        f"plain torch {p_ms:.3f} ms, bound {out['k3'][2]:.4f} ms ({card})")
+    for batch in (3, 16):  # a prover commitment batch; keygen's largest batch
+        scal = torch.as_tensor(FT.to_mont_limbs(random_fr(rng, batch << 13))
+                               .reshape(16, batch, 1 << 13), device=device)
+        px, py, pv, seg, L = sorted_scan_inputs(xs, ys, valid, scal)
+        k_ms = cuda_ms(lambda: MK.segmented_scan(px, py, pv, seg, L), 5)
+        p_ms = None
+        if batch == 3:
+            p_ms = cuda_ms(lambda: MK.segmented_scan_ref(px, py, pv, seg, L), 1, warm=False)
+        key = "k3" if batch == 3 else f"k3_b{batch}"
+        out[key] = [k_ms, p_ms, *k3_bound(pv, seg, L)]
+        plain = f", plain torch {p_ms:.3f} ms" if p_ms is not None else ""
+        wide, nbytes = k3_work(pv, seg, L)
+        log(f"K3 k=13 commit batch {batch} (lanes {px[0].numel() // L}, L={L}): kernel "
+            f"{k_ms:.4f} ms{plain}, bound {out[key][2]:.4f} ms ({out[key][3]}; operations "
+            f"{bound_ms(wide)[0]:.4f} ms, bytes of the int64-limb layout "
+            f"{bound_ms(0, 0, nbytes)[0]:.4f} ms) ({card})")
 
     x, y = EXP.make_inputs("mxu_mul", EXP.LANES, 3, device)
     wide, tensor = EXP.ops_per_iter("mxu_mul")
@@ -451,8 +493,10 @@ def lost_time(device, digests, balances, circuit, card):
     of their paths -- the 2^20 tree through K1 and through K4, keygen and
     one prove at k=13 -- apart from the timed phases. The three wrappers
     are wrapped for the repeat: each call is fenced by CUDA events (so its
-    time is the wrapper's on the stream, layout conversions included) and
-    its bound is taken from its shape."""
+    time is the wrapper's on the stream, any layout conversion included)
+    and its bound is taken from its shape and, for K3, its digits. Also
+    logs the share of the first tree's K1 time spent on its 14 smallest
+    levels (2^13 messages or fewer)."""
     from circuits_halo2_tpu_torch.merkle import device_tree as DT
     from circuits_halo2_tpu_torch.ops import msm_kernel as MK
     from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
@@ -461,6 +505,8 @@ def lost_time(device, digests, balances, circuit, card):
 
     bound = {"k1": 0.0, "k3": 0.0, "k4": 0.0}
     spans = {"k1": [], "k3": [], "k4": []}
+
+    small = []  # K1 launches on the 14 smallest tree levels (2^13 messages or fewer)
 
     def timed(key, fn, *args):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -472,12 +518,13 @@ def lost_time(device, digests, balances, circuit, card):
 
     def k1(inputs):
         length, _, n = inputs.shape
-        bound["k1"] += bound_ms(n * length * PERM_PRODUCTS * CIOS, 0, n * (length + 1) * FE)[0]
+        bound["k1"] += bound_ms(n * length * PERM_WIDE, 0, n * (length + 1) * FE)[0]
+        if n <= 1 << 13:
+            small.append(len(spans["k1"]))
         return timed("k1", hash_batch, inputs)
 
     def k3(px, py, pvalid, seg, L):
-        points = px[0].numel()
-        bound["k3"] += bound_ms(points * 11 * CIOS, 0, points * (5 * FE + 8))[0]
+        bound["k3"] += k3_bound(pvalid, seg, L)[0]
         return timed("k3", segmented_scan, px, py, pvalid, seg, L)
 
     def k4(inputs):
@@ -502,6 +549,10 @@ def lost_time(device, digests, balances, circuit, card):
         ms = sum(start.elapsed_time(end) for start, end in spans[key])
         log(f"{key.upper()} on its path: {len(spans[key])} launches, {ms:.3f} ms, "
             f"bound {bound[key]:.3f} ms, lost {ms - bound[key]:.3f} ms ({card})")
+    tree = spans["k1"][:21]  # the first 2^20 tree: 21 levels, leaves first
+    small_ms = sum(s.elapsed_time(e) for i, (s, e) in enumerate(tree) if i in small)
+    log(f"K1 levels of 2^13 messages or fewer: {sum(i < 21 for i in small)} launches, "
+        f"{small_ms:.3f} ms of the tree's {sum(s.elapsed_time(e) for s, e in tree):.3f} ms ({card})")
 
 
 KERNELS = (  # key, name, source, replaced TPU kernel

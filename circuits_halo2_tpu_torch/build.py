@@ -54,8 +54,9 @@ def _nvcc() -> str:
 def cuda_library_path() -> Path:
     """Path of the compiled kernel library for the current sources."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in ("bn254.cuh",) + CUDA_SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / name for name in CUDA_SOURCES]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return build_dir() / f"kernels-{h.hexdigest()[:16]}.so"
 
 
@@ -102,7 +103,7 @@ def cuda_library() -> ctypes.CDLL:
             lib.poseidon_set_constants.argtypes = [vp, vp]
             lib.poseidon_hash_batch_cuda.argtypes = [vp, vp, i32, i64, vp, vp]
             lib.poseidon_permute_cuda.argtypes = [vp, vp, vp, vp, i64, vp]
-            lib.msm_scan_cuda.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i64, vp]
+            lib.msm_scan_cuda.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i32, vp]
             lib.poseidon_mxu_set_constants.argtypes = [vp, vp, vp]
             lib.poseidon_mxu_hash_batch_cuda.argtypes = [vp, vp, i32, i64, vp, vp]
             lib.poseidon_mxu_probe_cuda.argtypes = [i32, vp, vp, vp, i64, i32, vp]

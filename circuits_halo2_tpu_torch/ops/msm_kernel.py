@@ -21,7 +21,6 @@ import torch
 from .. import build
 from . import field_torch as FT
 
-
 def _lanes(px: torch.Tensor, L: int) -> int:
     n = px.shape[-1]
     if n % L:
@@ -54,16 +53,6 @@ def segmented_scan_ref(px, py, pvalid, seg, L: int):
     return tuple(o.reshape(px.shape) for o in out)
 
 
-def _to_kernel(a: torch.Tensor, lanes: int, L: int) -> torch.Tensor:
-    """(16, *batch, n) limbs -> (L, 8, lanes) int32 words."""
-    return FT.limbs_to_words(a.reshape(FT.NLIMBS, lanes, L).permute(2, 0, 1), 1)
-
-
-def _from_kernel(w: torch.Tensor, shape) -> torch.Tensor:
-    """(L, 8, lanes) int32 words -> (16, *batch, n) limbs."""
-    return FT.words_to_limbs(w, 1).permute(1, 2, 0).reshape(shape)
-
-
 def segmented_scan(px, py, pvalid, seg, L: int):
     """Chunk-local segmented bucket sums; see the module docstring."""
     for name, a in (("px", px), ("py", py)):
@@ -76,21 +65,20 @@ def segmented_scan(px, py, pvalid, seg, L: int):
     if px.device.type != "cuda":
         raise ValueError(f"segmented_scan: unsupported device {px.device}")
     lib = build.cuda_library()
-    lanes = _lanes(px, L)
-    xs = _to_kernel(px, lanes, L)
-    ys = _to_kernel(py, lanes, L)
-    sg = seg.reshape(lanes, L).t().to(torch.int32).contiguous()
-    vs = pvalid.reshape(lanes, L).t().to(torch.int32).contiguous()
-    outs = [torch.empty((L, 8, lanes), dtype=torch.int32, device=px.device) for _ in range(3)]
+    points = _lanes(px, L) * L
+    px, py = px.contiguous(), py.contiguous()
+    sg = seg.to(torch.int64).contiguous()
+    vs = pvalid.to(torch.bool).contiguous()
+    outs = [torch.empty_like(px) for _ in range(3)]
     stream = torch.cuda.current_stream(px.device).cuda_stream
     segmented_scan.launches += 1
     build.check(
-        lib.msm_scan_cuda(sg.data_ptr(), vs.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+        lib.msm_scan_cuda(sg.data_ptr(), vs.data_ptr(), px.data_ptr(), py.data_ptr(),
                           outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-                          L, lanes, stream),
+                          points, L, stream),
         "msm_scan_cuda",
     )
-    return tuple(_from_kernel(o, px.shape) for o in outs)
+    return tuple(outs)
 
 
 segmented_scan.launches = 0

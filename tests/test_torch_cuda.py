@@ -41,7 +41,7 @@ def _fr(rng, count):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("length", [2, 3, 4])
-@pytest.mark.parametrize("n", [1, 3000])  # a single message and a ragged last block
+@pytest.mark.parametrize("n", [1, 3000, 1 << 13])  # one message, a ragged block, a small level
 def test_k1_matches_plain(dev, length, n):
     rng = np.random.default_rng(length * n)
     cols = [_fr(rng, n) for _ in range(length)]
@@ -74,10 +74,36 @@ def _scan_inputs(dev, n, B, W, seed):
     return px, py, valid.expand(B, W, n).contiguous(), digits
 
 
+def _pippenger_inputs(dev, n, B, zeros, seed):
+    """What the Pippenger hands K3 for B columns of random scalars, a share
+    ``zeros`` of them 0: the bases gathered in sorted window-digit order."""
+    rng = np.random.default_rng(seed)
+    points = native.g1_fixed_base_muls(G1_GEN, _fr(rng, n))
+    points[3] = None
+    rows = [[0 if z else v for v, z in zip(_fr(rng, n), rng.random(n) < zeros)]
+            for _ in range(B)]
+    scal = torch.as_tensor(FT.to_mont_limbs([v for r in rows for v in r]).reshape(16, B, n),
+                           device=dev)
+    xs, ys, valid = TM.precompute_bases(points, dev)
+    digits = TM.digits_from_mont(scal)
+    perm = torch.argsort(digits, dim=-1, stable=True)
+    pxy = torch.cat([xs, ys], dim=0)[:, perm]
+    return pxy[:16], pxy[16:], valid[perm], torch.gather(digits, -1, perm)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,B,W", [(256, 2, 4), (2048, 1, 32)])
-def test_k3_matches_plain(dev, n, B, W):
-    px, py, pv, digits = _scan_inputs(dev, n, B, W, seed=n)
+@pytest.mark.parametrize("n,B,W,zeros", [
+    (256, 2, 4, None), (2048, 1, 32, None),  # crafted digits 0-2
+    (1 << 13, 16, TM.NWIN, 0.0),  # k=13, a keygen batch of 16 columns
+    (1 << 13, 3, TM.NWIN, 0.9),  # k=13, skewed digits: 90 % zero scalars
+    (1 << 14, 3, TM.NWIN, 0.9),  # k=14 (L=256), skewed digits
+])
+def test_k3_matches_plain(dev, n, B, W, zeros):
+    if zeros is None:
+        px, py, pv, digits = _scan_inputs(dev, n, B, W, seed=n)
+    else:
+        px, py, pv, digits = _pippenger_inputs(dev, n, B, zeros, seed=n + B)
+    assert digits.shape == (B, W, n)
     L = TM._seg_chunk_len(n)
     before = MK.segmented_scan.launches
     got = MK.segmented_scan(px, py, pv, digits, L)
