@@ -14,47 +14,64 @@
 //     t = sum_h t_h 2^(8h)  ==  sum_h t_h c_h  (mod p),   c_h = 2^(8h) mod p
 //       =  sum_j 2^(8j) S_j,   S_j = sum_h W[j][h] t_h,   W[j][h] = byte j of c_h
 //
-// so the reduction is S = W (32 x 64 bytes) . T (64 byte planes x lanes).
+// so the reduction is S = T (lanes x 64 byte planes) . W^T (64 x 32 bytes).
 //
 // Bounds, for this representation. Every entry of W and every byte plane is
 // < 2^8, so each S_j <= 64 * 255 * 255 = 4,161,600 < 2^22: the int32
 // accumulator of the tensor cores is exact and no operand needs splitting
 // (the TPU version split the weights into lo/hi byte rows because bf16 holds
-// only 8 exact bits and f32 accumulates exactly only below 2^24). The value
+// only 8 exact bits and f32 accumulates exactly only below 2^24). Two
+// neighbouring sums pack into one word, S_2i + 2^8 S_2i+1 < 2^31. The value
 // V = sum_j S_j 2^(8j) = sum_h t_h c_h < 64 * 255 * p < 2^14 p < 2^268 is
-// carried into 9 words (each partial sum < 2^47 in a 64-bit accumulator,
-// top word < 2^15). It is then made canonical on the CUDA cores:
-// q = floor((V >> 224) / d) with d = (p >> 224) + 1, so q*p <= V and
-// V - q*p < 3p; two conditional subtractions of p finish. Products of
-// canonical values and the MDS sums never exceed 2^512, and every add of
-// two canonical values is a modular add (sum < 2p < 2^256), so no
-// intermediate leaves its word range. Inputs to the sponge may be any
-// value < 2^256 (a raw keccak digest): they are made canonical by the same
-// step before they are absorbed.
+// carried into 9 words (each partial sum < 2^48 in a 64-bit accumulator,
+// top word < 2^12). It is then made canonical on the CUDA cores:
+// q = floor(a / d) for a = V >> 224 < 2^44 and d = (p >> 224) + 1, so
+// q*p <= V and V - q*p < 3p; two conditional subtractions of p finish. The
+// quotient is a multiply-high by a reciprocal, not a division:
+// q = (a * m) >> 73 with m = ceil(2^73 / d) = 0xa948e8c458b (44 bits) is
+// exact, because m*d - 2^73 = 8,361,841 < 2^29, so a * (m*d - 2^73) < 2^73
+// for every a < 2^44 (Granlund and Montgomery, PLDI 1994). Products come from
+// the carry-chain wide products of bn254_fast.cuh (sqr_wide, mul_wide,
+// mul2_wide): canonical operands and canonical MDS constants keep every sum
+// below 2p^2 < 2^512, and every add of two canonical values is a modular add
+// (sum < 2p < 2^256), so no intermediate leaves its word range. Inputs to
+// the sponge may be any value < 2^256 (a raw keccak digest): they are made
+// canonical by the same step before they are absorbed.
 //
 // What bounds it on the card: integer multiply issue on the CUDA cores. Per
-// permutation there are 472 products of 64 mul.wide each (30,208, against
-// K1's 64,192 for its 472 CIOS products) and 344 reductions of
-// 32 x 64 x 2 = 4,096 tensor-core operations per lane (1.4 M), which the
-// int8 peak of 1,979 T/s covers in a fifth of the multiply time.
+// permutation: 144 squarings of 36 word products, 72 products of 64 and 128
+// MDS rows of 128 (26,176), and 344 reductions of 12 (8 for q*p, 4 for the
+// reciprocal): 30,304 wide multiplies against K1's 49,568, plus 344
+// reductions of 32 x 64 x 2 = 4,096 tensor-core operations per lane (1.4 M),
+// which the int8 peak of 1,979 T/s covers in a fifth of the multiply time.
 //
-// Design: one thread per message, 128 threads (4 warps) per block. A thread
-// forms its product on the CUDA cores (32 x 32 -> 64) and writes the 16
-// product words, which are its 64 byte planes, into its warp's tile in
-// shared memory (the B fragments, one column per lane). The warp then runs
-// 16 wmma m16n16k16 u8 products (2 row tiles x 2 lane tiles x 4 k steps)
-// against W, which each block copies from __constant__ memory into shared
-// memory once, tiled as the A fragments; the s32 sums go back through shared
-// memory, one column of 32 per lane. Every thread of a warp takes part in
-// each product, so the ragged tail is masked by loading zeros and storing
-// nothing, never by returning early. wgmma would feed the tensor cores
-// faster; this version only has to be right.
+// Design: one thread per message, 128 threads (4 warps) per block, no shared
+// memory. A warp reduces its 32 messages together with 16
+// mma.sync.m16n8k32 u8 products (2 m-tiles x 4 n-tiles x 2 k-steps):
+// - B = W^T (k = 64 bytes, n = 32 sums) stays in registers for the whole
+//   kernel: 16 words per lane, packed on the host in fragment order
+//   (ops/poseidon_mxu.py::fragment_weights) and loaded once from __constant__.
+// - A = the product bytes. Lane 4g + q holds message row g + 8 (q & 1) of
+//   m-tile q >> 1. A word of a product is 4 consecutive k of one row, so the
+//   A fragments are whole product words: lane (g, t) needs words t, t+4,
+//   t+8, t+12 of each product of its quad, a 4 x 4 transpose of word blocks
+//   inside the quad (two __shfl_xor_sync rounds of 8 words, and selects).
+// - C: lane (g, t) holds sums 8 nt + 2t and 8 nt + 2t + 1 of the two rows of
+//   each m-tile. It packs each pair into one word, and a second transpose of
+//   the same shape hands every lane the 16 pairs of its own message.
+// Every lane of a warp takes part in each shuffle and product, so the ragged
+// tail is masked by loading zeros and storing nothing, never by returning
+// early. The index functions of the transposes and fragments are BN_HD: the
+// g++ harness of the tests runs them over 32 lane arrays, with a shuffle as
+// an array read and the product by the PTX fragment definitions.
+// Not wgmma: it reads B from shared memory and needs a warpgroup barrier
+// per reduction, the staging this design removes, for tensor-core work that
+// is a small part of the kernel's time.
 
-#include "bn254.cuh"
+#include "bn254_fast.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
-#include <mma.h>
 #define MX_FN static __device__ __forceinline__
 #else
 #define MX_FN static inline
@@ -64,41 +81,20 @@ namespace mxu {
 
 using bn254::Fr;
 
-// d = (p >> 224) + 1
-constexpr uint64_t QDIV = 0x30644e73ull;
+constexpr uint64_t QRECIP = 0xa948e8c458bull;  // ceil(2^73 / d), d = (p >> 224) + 1
 
-// t (16 words) = a * b, schoolbook on 32 x 32 -> 64 products.
-BN_HD void product(uint32_t t[16], const uint32_t a[8], const uint32_t b[8]) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) t[i] = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            uint64_t s = (uint64_t)a[j] * b[i] + t[i + j] + c;
-            t[i + j] = (uint32_t)s;
-            c = s >> 32;
-        }
-        t[i + 8] = (uint32_t)c;
-    }
-}
-
-// t += u over 16 words (the sum stays < 2^512 where it is used).
-BN_HD void add_wide(uint32_t t[16], const uint32_t u[16]) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-        c += (uint64_t)t[i] + u[i];
-        t[i] = (uint32_t)c;
-        c >>= 32;
-    }
+// floor(a / d) for a < 2^44 (the bound in the header).
+BN_HD uint32_t quotient(uint64_t a) {
+#ifdef __CUDA_ARCH__
+    return (uint32_t)(__umul64hi(a, QRECIP) >> 9);
+#else
+    return (uint32_t)(((unsigned __int128)a * QRECIP) >> 73);
+#endif
 }
 
 // r = V mod p for V = v[0..7] + v[8] * 2^256 < 2^268.
 BN_HD void canon(uint32_t r[8], const uint32_t v[9]) {
-    const uint64_t a = ((uint64_t)v[8] << 32) | v[7];  // V >> 224
-    const uint32_t q = (uint32_t)(a / QDIV);
+    const uint32_t q = quotient(((uint64_t)v[8] << 32) | v[7]);  // V >> 224
     uint32_t t[8];
     uint64_t carry = 0;
     int64_t borrow = 0;
@@ -115,19 +111,26 @@ BN_HD void canon(uint32_t r[8], const uint32_t v[9]) {
     bn254::reduce_once<Fr>(r, r, 0);
 }
 
-// r = sum_j S_j 2^(8j) mod p, for the 32 column sums S_j < 2^22.
-BN_HD void finish(uint32_t r[8], const int32_t s[32]) {
+// r = sum_i P_i 2^(16i) mod p, for the 16 pair sums P_i = S_2i + 2^8 S_2i+1.
+BN_HD void finish_pairs(uint32_t r[8], const uint32_t p[16]) {
     uint32_t v[9];
     uint64_t acc = 0;
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
-        acc += (uint64_t)(uint32_t)s[4 * w] + ((uint64_t)(uint32_t)s[4 * w + 1] << 8)
-             + ((uint64_t)(uint32_t)s[4 * w + 2] << 16) + ((uint64_t)(uint32_t)s[4 * w + 3] << 24);
+        acc += (uint64_t)p[2 * w] + ((uint64_t)p[2 * w + 1] << 16);
         v[w] = (uint32_t)acc;
         acc >>= 32;
     }
     v[8] = (uint32_t)acc;
     canon(r, v);
+}
+
+// r = sum_j S_j 2^(8j) mod p, for the 32 column sums S_j < 2^22.
+BN_HD void finish(uint32_t r[8], const int32_t s[32]) {
+    uint32_t p[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) p[i] = (uint32_t)s[2 * i] + ((uint32_t)s[2 * i + 1] << 8);
+    finish_pairs(r, p);
 }
 
 // Any value < 2^256 -> canonical.
@@ -154,38 +157,114 @@ struct HostReducer {
     }
 };
 
+// ---------------------------------------------------------------------------
+// The warp's reduction, lane by lane (g = lane >> 2, q or t = lane & 3)
+// ---------------------------------------------------------------------------
+
+// Block s of a product is its words s, s + 4, s + 8, s + 12: x[s][i] = t[4i + s].
+BN_HD void word_blocks(uint32_t x[4][4], const uint32_t t[16]) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[s][i] = t[4 * i + s];
+}
+
+// The quad transpose: afterwards block s of lane 4g + q is what block q of
+// lane 4g + s was. Round 0 exchanges across lane ^ 2 the pairs of blocks
+// (u, 2 + u), round 1 across lane ^ 1 the pairs (2u, 2u + 1), u = 0, 1. In
+// each pair a lane sends one block, the high one where its lane bit of that
+// round is 0, and takes its partner's block into the same slot.
+template <int R> BN_HD int xor_mask() { return R == 0 ? 2 : 1; }
+template <int R> BN_HD int pair_slot(int u, int hi) { return R == 0 ? 2 * hi + u : 2 * u + hi; }
+template <int R> BN_HD bool sends_hi(int lane) { return ((lane >> (1 - R)) & 1) == 0; }
+
+template <int R, int B>
+BN_HD void quad_send(uint32_t v[2][B], const uint32_t x[4][B], int lane) {
+    const bool hi = sends_hi<R>(lane);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int b = 0; b < B; ++b) v[u][b] = hi ? x[pair_slot<R>(u, 1)][b] : x[pair_slot<R>(u, 0)][b];
+}
+
+template <int R, int B>
+BN_HD void quad_recv(uint32_t x[4][B], const uint32_t v[2][B], int lane) {
+    const bool hi = sends_hi<R>(lane);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+            const int s1 = pair_slot<R>(u, 1), s0 = pair_slot<R>(u, 0);
+            x[s1][b] = hi ? v[u][b] : x[s1][b];
+            x[s0][b] = hi ? x[s0][b] : v[u][b];
+        }
+}
+
+// After the first transpose x[q][i] is word 4i + t of lane 4g + q's product.
+// The A fragment of m-tile mt, k-step ks (bytes 32 ks .. 32 ks + 31): rows g
+// (q = 2 mt) and g + 8 (q = 2 mt + 1), words 8 ks + t and 8 ks + 4 + t.
+BN_HD void a_frag(uint32_t a[4], const uint32_t x[4][4], int mt, int ks) {
+    a[0] = x[2 * mt][2 * ks];
+    a[1] = x[2 * mt + 1][2 * ks];
+    a[2] = x[2 * mt][2 * ks + 1];
+    a[3] = x[2 * mt + 1][2 * ks + 1];
+}
+
+// B fragment words of this lane: b[(ks * 4 + nt) * 2 + reg].
+BN_HD int b_index(int ks, int nt, int reg) { return (ks * 4 + nt) * 2 + reg; }
+
+// The C fragment of m-tile mt, n-tile nt holds S_(8 nt + 2t), S_(8 nt + 2t + 1)
+// of rows g (c0, c1) and g + 8 (c2, c3): one pair word for each message.
+BN_HD void c_pairs(uint32_t y[4][4], const int32_t c[4], int mt, int nt) {
+    y[2 * mt][nt] = (uint32_t)c[0] + ((uint32_t)c[1] << 8);
+    y[2 * mt + 1][nt] = (uint32_t)c[2] + ((uint32_t)c[3] << 8);
+}
+
+// After the second transpose y[s][nt] is lane 4g + s's pair 4 nt + t of this
+// lane's message.
+BN_HD void lane_pairs(uint32_t p[16], const uint32_t y[4][4]) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) p[4 * nt + s] = y[s][nt];
+}
+
 template <class Red>
 MX_FN void pow5(const Red& red, uint32_t x[8]) {
     uint32_t t[16], x2[8], x4[8];
-    product(t, x, x);
+    bnf::sqr_wide(t, x);
     red.reduce(x2, t);
-    product(t, x2, x2);
+    bnf::sqr_wide(t, x2);
     red.reduce(x4, t);
-    product(t, x4, x);
+    bnf::mul_wide(t, x4, x);
     red.reduce(x, t);
 }
 
-// One permutation on canonical plain residues; rc/mds are plain residues.
+// One round on canonical plain residues; rc/mds are plain residues.
+template <bool FULL, class Red>
+MX_FN void perm_round(const Red& red, uint32_t s0[8], uint32_t s1[8], const uint32_t rc[2][8],
+                      const uint32_t (*mds)[2][8]) {
+    bn254::add<Fr>(s0, s0, rc[0]);
+    bn254::add<Fr>(s1, s1, rc[1]);
+    pow5(red, s0);
+    if (FULL) pow5(red, s1);
+    uint32_t t[16], n0[8];
+    bnf::mul2_wide(t, s0, mds[0][0], s1, mds[0][1]);
+    red.reduce(n0, t);
+    bnf::mul2_wide(t, s0, mds[1][0], s1, mds[1][1]);
+    red.reduce(s1, t);
+    bn254::copy(s0, n0);
+}
+
 template <class Red>
 MX_FN void permute(const Red& red, uint32_t s0[8], uint32_t s1[8],
                    const uint32_t (*rc)[2][8], const uint32_t (*mds)[2][8]) {
-    for (int r = 0; r < 64; ++r) {
-        const bool full = r < 4 || r >= 60;
-        bn254::add<Fr>(s0, s0, rc[r][0]);
-        bn254::add<Fr>(s1, s1, rc[r][1]);
-        pow5(red, s0);
-        if (full) pow5(red, s1);
-        uint32_t t[16], u[16], n0[8];
-        product(t, mds[0][0], s0);
-        product(u, mds[0][1], s1);
-        add_wide(t, u);
-        red.reduce(n0, t);
-        product(t, mds[1][0], s0);
-        product(u, mds[1][1], s1);
-        add_wide(t, u);
-        red.reduce(s1, t);
-        bn254::copy(s0, n0);
-    }
+#pragma unroll 1
+    for (int r = 0; r < 4; ++r) perm_round<true>(red, s0, s1, rc[r], mds);
+#pragma unroll 1
+    for (int r = 4; r < 60; ++r) perm_round<false>(red, s0, s1, rc[r], mds);
+#pragma unroll 1
+    for (int r = 60; r < 64; ++r) perm_round<true>(red, s0, s1, rc[r], mds);
 }
 
 // The sponge for message `idx` of `n` (in is (L, 8, n) words, any value
@@ -217,80 +296,66 @@ constexpr int BCAST_ROWS = 18;
 }  // namespace mxu
 
 #ifdef __CUDACC__
-using namespace nvcuda;
-
 __constant__ uint32_t MXU_RC[64][2][8];
 __constant__ uint32_t MXU_MDS[2][2][8];
-__constant__ uint4 MXU_W[128];  // 2048 bytes: W as 8 row-major 16 x 16 tiles
+__constant__ uint32_t MXU_WB[32][16];  // 2048 bytes: W^T as each lane's 16 B-fragment words
 
 constexpr int MXU_THREADS = 128;
-constexpr int MXU_WARPS = MXU_THREADS / 32;
 
-struct MxuShared {
-    // tile (mi, ki) of W at (mi * 4 + ki) * 256, element (m, k) at m * 16 + k
-    __align__(256) unsigned char w[2048];
-    // per warp, tile (ki, ni) of the byte planes at (ni * 4 + ki) * 256,
-    // element (k, n) at n * 16 + k: lane ni * 16 + n writes its 64 bytes
-    __align__(256) unsigned char b[MXU_WARPS][2048];
-    // per warp, tile (mi, ni) of S at (ni * 2 + mi) * 256, element (m, n) at n * 16 + m
-    __align__(256) int c[MXU_WARPS][1024];
-};
+// acc (16 x 8 s32) += a (16 x 32 u8, row) . b (32 x 8 u8, col), one warp.
+static __device__ __forceinline__ void mma_u8(int32_t c[4], const uint32_t a[4], uint32_t b0,
+                                              uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-struct TensorCoreReducer {
-    const unsigned char* w;
-    unsigned char* b;
-    int* c;
+template <int R, int B>
+static __device__ __forceinline__ void quad_round(uint32_t x[4][B], int lane) {
+    uint32_t v[2][B];
+    mxu::quad_send<R, B>(v, x, lane);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int b = 0; b < B; ++b) v[u][b] = __shfl_xor_sync(0xffffffffu, v[u][b], mxu::xor_mask<R>());
+    mxu::quad_recv<R, B>(x, v, lane);
+}
+
+struct RegisterReducer {
+    uint32_t b[16];  // this lane's B fragments, mxu::b_index order
     int lane;
 
+    __device__ RegisterReducer() : lane((int)(threadIdx.x & 31)) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) b[i] = MXU_WB[lane][i];
+    }
+
     __device__ void reduce(uint32_t r[8], const uint32_t t[16]) const {
-        const int ni = lane >> 4, n = lane & 15;
+        uint32_t x[4][4], y[4][4];
+        mxu::word_blocks(x, t);
+        quad_round<0, 4>(x, lane);
+        quad_round<1, 4>(x, lane);
 #pragma unroll
-        for (int ki = 0; ki < 4; ++ki)
-            *reinterpret_cast<uint4*>(b + (ni * 4 + ki) * 256 + n * 16) =
-                make_uint4(t[4 * ki], t[4 * ki + 1], t[4 * ki + 2], t[4 * ki + 3]);
-        __syncwarp();
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, unsigned char, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, unsigned char, wmma::col_major> fb;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, int> fc;
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
+            for (int nt = 0; nt < 4; ++nt) {
+                int32_t c[4] = {0, 0, 0, 0};
 #pragma unroll
-            for (int nj = 0; nj < 2; ++nj) {
-                wmma::fill_fragment(fc, 0);
-#pragma unroll
-                for (int ki = 0; ki < 4; ++ki) {
-                    wmma::load_matrix_sync(fa, w + (mi * 4 + ki) * 256, 16);
-                    wmma::load_matrix_sync(fb, b + (nj * 4 + ki) * 256, 16);
-                    wmma::mma_sync(fc, fa, fb, fc);
+                for (int ks = 0; ks < 2; ++ks) {
+                    uint32_t a[4];
+                    mxu::a_frag(a, x, mt, ks);
+                    mma_u8(c, a, b[mxu::b_index(ks, nt, 0)], b[mxu::b_index(ks, nt, 1)]);
                 }
-                wmma::store_matrix_sync(c + (nj * 2 + mi) * 256, fc, 16, wmma::mem_col_major);
+                mxu::c_pairs(y, c, mt, nt);
             }
-        }
-        __syncwarp();
-        int32_t s[32];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-            const int4* src = reinterpret_cast<const int4*>(c + (ni * 2 + mi) * 256 + n * 16);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                int4 v = src[q];
-                s[mi * 16 + 4 * q] = v.x;
-                s[mi * 16 + 4 * q + 1] = v.y;
-                s[mi * 16 + 4 * q + 2] = v.z;
-                s[mi * 16 + 4 * q + 3] = v.w;
-            }
-        }
-        mxu::finish(r, s);
+        quad_round<0, 4>(y, lane);
+        quad_round<1, 4>(y, lane);
+        uint32_t p[16];
+        mxu::lane_pairs(p, y);
+        mxu::finish_pairs(r, p);
     }
 };
-
-// Copies W into shared memory and returns this thread's reducer.
-__device__ TensorCoreReducer block_reducer(MxuShared& sh) {
-    if (threadIdx.x < 128) reinterpret_cast<uint4*>(sh.w)[threadIdx.x] = MXU_W[threadIdx.x];
-    __syncthreads();
-    const int warp = threadIdx.x >> 5;
-    return TensorCoreReducer{sh.w, sh.b[warp], sh.c[warp], (int)(threadIdx.x & 31)};
-}
 
 struct Words8 {
     uint32_t v[8];
@@ -299,8 +364,7 @@ struct Words8 {
 __global__ void __launch_bounds__(MXU_THREADS)
 poseidon_mxu_sponge_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                            int L, int64_t n, Words8 cap) {
-    __shared__ MxuShared sh;
-    const TensorCoreReducer red = block_reducer(sh);
+    const RegisterReducer red;
     const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     const bool active = idx < n;
     uint32_t d[8];
@@ -316,8 +380,6 @@ template <int V>
 __global__ void __launch_bounds__(MXU_THREADS)
 poseidon_mxu_probe_kernel(const uint32_t* __restrict__ x_in, const uint32_t* __restrict__ y_in,
                           uint32_t* __restrict__ out, int64_t n, int iters) {
-    __shared__ MxuShared sh;
-    const TensorCoreReducer red = block_reducer(sh);
     const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     const bool active = idx < n;
     if (V == mxu::BCAST) {
@@ -339,6 +401,7 @@ poseidon_mxu_probe_kernel(const uint32_t* __restrict__ x_in, const uint32_t* __r
         for (int i = 0; i < mxu::BCAST_ROWS; ++i) out[(int64_t)i * n + idx] = acc[i];
         return;
     }
+    const RegisterReducer red;
     uint32_t x[8], y[8], t[16];
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
@@ -356,7 +419,7 @@ poseidon_mxu_probe_kernel(const uint32_t* __restrict__ x_in, const uint32_t* __r
     } else if (V == mxu::MXU_MUL) {
         for (int it = 0; it < iters; ++it) {
             uint32_t nx[8];
-            mxu::product(t, x, y);
+            bnf::mul_wide(t, x, y);
             red.reduce(nx, t);
             bn254::copy(y, x);
             bn254::copy(x, nx);
@@ -369,7 +432,7 @@ poseidon_mxu_probe_kernel(const uint32_t* __restrict__ x_in, const uint32_t* __r
             red.reduce(x, t);
         }
     } else {  // CHECK
-        mxu::product(t, x, y);
+        bnf::mul_wide(t, x, y);
         red.reduce(x, t);
     }
     if (active) {
@@ -379,10 +442,10 @@ poseidon_mxu_probe_kernel(const uint32_t* __restrict__ x_in, const uint32_t* __r
 }
 
 extern "C" int poseidon_mxu_set_constants(const uint32_t* rc, const uint32_t* mds,
-                                          const uint8_t* w) {
+                                          const uint32_t* wb) {
     cudaMemcpyToSymbol(MXU_RC, rc, sizeof(MXU_RC));
     cudaMemcpyToSymbol(MXU_MDS, mds, sizeof(MXU_MDS));
-    cudaMemcpyToSymbol(MXU_W, w, sizeof(MXU_W));
+    cudaMemcpyToSymbol(MXU_WB, wb, sizeof(MXU_WB));
     return (int)cudaGetLastError();
 }
 

@@ -42,13 +42,22 @@ def reduce_weights() -> np.ndarray:
     return np.array([[c[j] for c in cols] for j in range(NOUT)], dtype=np.uint8)
 
 
+# Wide (32 x 32 -> 64) multiplies of K4's steps: the word products of
+# bn254_fast.cuh's wide squaring, product and two-product MDS row, and of a
+# reduction's canonicalisation (8 for q·p, 4 for the reciprocal's
+# multiply-high); a reduction's tensor-core operations (32 x 64
+# multiply-adds of 2 operations each).
+SQR_WIDE, MUL_WIDE, MUL2_WIDE, REDUCE_WIDE = 36, 64, 128, 12
+REDUCE_TENSOR = NOUT * NBYTES * 2
+PERM_WIDE = 144 * SQR_WIDE + 72 * MUL_WIDE + 128 * MUL2_WIDE + 344 * REDUCE_WIDE
+
+
 def ops_per_hash(length: int) -> tuple[int, int]:
-    """(32 x 32 -> 64 multiplies, tensor-core operations) of one digest of a
-    length-L message. Per permutation: 472 products of 64 wide multiplies,
-    and 344 reductions, each 32 x 64 multiply-adds (2 operations each) on
-    the tensor cores and 8 wide multiplies (q·p) to make it canonical; per
-    absorbed word one more canonicalisation."""
-    return length * (472 * 64 + 344 * 8 + 8), length * 344 * NOUT * NBYTES * 2
+    """(wide multiplies, tensor-core operations) of one digest of a
+    length-L message. Per permutation: 144 squarings, 72 products and 128
+    MDS rows (each a two-product sum), and 344 reductions; per absorbed
+    word one more canonicalisation."""
+    return length * (PERM_WIDE + REDUCE_WIDE), length * 344 * REDUCE_TENSOR
 
 
 # ---------------------------------------------------------------------------
@@ -154,13 +163,21 @@ def _words(values) -> np.ndarray:
                          dtype="<u4").reshape(len(values), 8)
 
 
-def tiled_weights() -> np.ndarray:
-    """``W`` as the kernel's A fragments: 8 row-major 16 x 16 tiles, tile
-    (mi, ki) holding W[16·mi : 16·mi + 16, 16·ki : 16·ki + 16]."""
-    w = reduce_weights()
-    return np.ascontiguousarray(
-        np.stack([w[16 * mi : 16 * mi + 16, 16 * ki : 16 * ki + 16]
-                  for mi in range(2) for ki in range(4)]).reshape(-1))
+def fragment_weights() -> np.ndarray:
+    """``W``ᵀ as the kernel's B fragments of ``mma.m16n8k32`` (k = 64 bytes
+    of a product, n = 32 sums): (32 lanes, 16 words) uint32, word
+    (ks·4 + nt)·2 + reg of lane 4g + t holding bytes k = 32·ks + 16·reg +
+    4t .. + 3 (low byte first) of column n = 8·nt + g."""
+    w = reduce_weights()  # (n, k)
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    out = np.zeros((32, 2, 4, 2), dtype=np.uint32)
+    for ks in range(2):
+        for nt in range(4):
+            for reg in range(2):
+                for e in range(4):
+                    k = 32 * ks + 16 * reg + 4 * t + e
+                    out[:, ks, nt, reg] |= w[8 * nt + g, k].astype(np.uint32) << (8 * e)
+    return np.ascontiguousarray(out.reshape(32, 16))
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,8 +186,8 @@ def kernel_lib():
     lib = build.cuda_library()
     rc = np.ascontiguousarray(_words([c for row in PS.ROUND_CONSTANTS for c in row]))
     mds = np.ascontiguousarray(_words([c for row in PS.MDS for c in row]))
-    w = tiled_weights()
-    build.check(lib.poseidon_mxu_set_constants(rc.ctypes.data, mds.ctypes.data, w.ctypes.data),
+    wb = fragment_weights()
+    build.check(lib.poseidon_mxu_set_constants(rc.ctypes.data, mds.ctypes.data, wb.ctypes.data),
                 "poseidon_mxu_set_constants")
     return lib
 

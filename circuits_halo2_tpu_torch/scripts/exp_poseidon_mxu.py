@@ -6,7 +6,7 @@ variant runs ITERS dependent iterations per lane of one templated kernel
 
   vpu_mul   -- the CIOS Montgomery multiply of ``csrc/bn254.cuh`` (CUDA cores)
   boundary  -- the tensor-core reduce step alone (t = v + v·2^256, v = t mod p)
-  mxu_mul   -- the CUDA-core product plus the tensor-core reduce
+  mxu_mul   -- the CUDA-core wide product plus the tensor-core reduce
   bcast     -- the u32 row-broadcast probe ``acc + acc * acc[j % 18]`` on (18, M·128)
   check     -- K6: one tensor-core-reduced multiply of 4 random 248-bit
                values, held against Python ints
@@ -55,13 +55,14 @@ def make_inputs(variant: str, lanes: int = LANES, seed: int = 0, device="cuda:0"
 
 
 def ops_per_iter(variant: str) -> tuple[int, int]:
-    """(32 x 32 -> 64 multiplies, tensor-core operations) of one iteration of
-    one lane: a CIOS product is 136 wide multiplies, a schoolbook product 64,
-    a tensor-core reduction 32 x 64 multiply-adds plus 8 wide multiplies to
-    make it canonical; ``bcast``'s 18 32-bit multiply-adds count as 9."""
-    red = PM.NOUT * PM.NBYTES * 2
-    return {"vpu_mul": (136, 0), "boundary": (8, red), "mxu_mul": (72, red),
-            "bcast": (9, 0)}[variant]
+    """(wide multiplies, tensor-core operations) of one iteration of one
+    lane: a CIOS product is 136 wide multiplies, a wide product 64
+    (``bn254_fast.cuh``), a tensor-core reduction 32 x 64 multiply-adds plus
+    12 wide multiplies to make it canonical; ``bcast``'s 18 32-bit
+    multiply-adds count as 9."""
+    red = PM.REDUCE_WIDE
+    return {"vpu_mul": (136, 0), "boundary": (red, PM.REDUCE_TENSOR),
+            "mxu_mul": (PM.MUL_WIDE + red, PM.REDUCE_TENSOR), "bcast": (9, 0)}[variant]
 
 
 # ---------------------------------------------------------------------------

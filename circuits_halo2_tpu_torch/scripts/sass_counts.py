@@ -1,4 +1,5 @@
-"""Count the SASS instructions of K1's, K2's and K3's field arithmetic.
+"""Count the SASS instructions of the kernels' field arithmetic and of K4's
+reduction.
 
     python -m circuits_halo2_tpu_torch.scripts.sass_counts [--roots DIR ...]
 
@@ -16,12 +17,22 @@ checkouts compare side by side:
   squaring, two-product sum, add and sub, and one full and one partial
   Poseidon round (``pos_round``). One permutation runs 8 full and 56
   partial rounds, so its count is taken as 8 full + 56 partial.
+- K4's probes, where the checkout has ``poseidon_mxu.cu``: one warp
+  reduction, taken as the probe of two reductions less the probe of one
+  (so the reducer's set-up, the loads of W and any shared-memory copy of
+  it, cancels), and ``pow5`` (three products, three reductions). Where the
+  checkout has K4's round function (``mxu::perm_round``), also one full and
+  one partial round and the permutation. These and ``pow5`` are less the
+  set-up: one reduction's probe less the base and one reduction.
 - Kernels. The checkout's ``csrc/*.cu`` are compiled the same way and
   every ``__global__`` function's static instruction count is listed (a
   loop body counts once).
 
 Counts are of instructions in the compiled code: ``IMAD`` counts every
-``IMAD*`` form (the integer multiply pipe), ``total`` all instructions.
+``IMAD*`` form (the integer multiply pipe), ``IMMA`` the tensor-core
+integer products, ``SHFL`` the warp shuffles, ``shared`` every
+shared-memory load, store or atomic (``LDS*``, ``STS*``, ``ATOMS``),
+``total`` all instructions.
 Prints a table of the probes, then everything as one JSON line.
 """
 
@@ -41,10 +52,8 @@ PKG = Path(__file__).resolve().parents[1]
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 ROUNDS_FULL, ROUNDS_PARTIAL = 8, 56
 
-PROBES = r"""
-#include "poseidon.cu"
-#include "msm_scan.cu"
-
+# Each probe loads its operands, runs its body and stores them apart.
+PRELUDE = r"""
 #define IN(v, k) uint32_t v[8]; for (int w = 0; w < 8; ++w) v[w] = io[(k) * 8 + w + threadIdx.x * 128]
 #define OUT(v, k) for (int w = 0; w < 8; ++w) io[(k) * 8 + w + 64 + threadIdx.x * 128] = v[w]
 #define PROBE(name, body) extern "C" __global__ void probe_##name(uint32_t* io, int r) { body }
@@ -53,6 +62,12 @@ PROBES = r"""
     OUT(a, 0); OUT(b, 1); OUT(c, 2); OUT(d, 3); OUT(e, 4);
 
 PROBE(base, IO3())
+"""
+
+PROBES = r"""
+#include "poseidon.cu"
+#include "msm_scan.cu"
+""" + PRELUDE + r"""
 PROBE(madd_base, IO5())
 PROBE(cios_mul, IO3(bn254::mul<bn254::Fr>(a, a, b)))
 PROBE(cios_add, IO3(bn254::add<bn254::Fr>(a, a, b)))
@@ -70,6 +85,35 @@ PROBE(lazy_sub, IO3(bnf::sub<bn254::Fr>(a, a, b)))
 PROBE(round_full, IO3(pos_round<true>(a, b, POS_RC[r], POS_MDS)))
 PROBE(round_partial, IO3(pos_round<false>(a, b, POS_RC[r], POS_MDS)))
 """
+
+# K4's probes are a source of their own: poseidon_mxu.cu shares names with
+# poseidon.cu.
+MXU_PROBES = r"""
+#include "poseidon_mxu.cu"
+""" + PRELUDE + r"""
+static __device__ void cat16(uint32_t t[16], const uint32_t x[8], const uint32_t y[8]) {
+    for (int w = 0; w < 8; ++w) {
+        t[w] = x[w];
+        t[w + 8] = y[w];
+    }
+}
+
+PROBE(mxu_reduce1, IO3(MXU_RED; uint32_t t[16]; cat16(t, a, b); red.reduce(a, t)))
+PROBE(mxu_reduce2, IO3(MXU_RED; uint32_t t[16]; cat16(t, a, b); red.reduce(a, t);
+                       cat16(t, b, a); red.reduce(b, t)))
+PROBE(mxu_pow5, IO3(MXU_RED; mxu::pow5(red, a)))
+"""
+
+MXU_ROUND_PROBES = r"""
+PROBE(mxu_round_full, IO3(MXU_RED; mxu::perm_round<true>(red, a, b, MXU_RC[r], MXU_MDS)))
+PROBE(mxu_round_partial, IO3(MXU_RED; mxu::perm_round<false>(red, a, b, MXU_RC[r], MXU_MDS)))
+"""
+
+# How a probe gets K4's reducer: in registers, or (the first K4) with W
+# copied into shared memory by the block.
+MXU_RED_REGISTERS = "#define MXU_RED const RegisterReducer red\n"
+MXU_RED_SHARED = ("#define MXU_RED __shared__ MxuShared sh; "
+                  "const TensorCoreReducer red = block_reducer(sh)\n")
 
 _INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 _FUNC = re.compile(r"Function : (\S+)")
@@ -107,31 +151,67 @@ def _sass(src: Path, include: Path, out: Path) -> dict[str, Counter]:
     return funcs
 
 
+_KINDS = {"IMAD": ("IMAD",), "IMMA": ("IMMA",), "SHFL": ("SHFL",),
+          "shared": ("LDS", "STS", "ATOMS")}  # LDS covers LDSM
+
+
 def _summary(ops: Counter, base: Counter | None = None) -> dict:
-    """IMAD and total counts of ``ops`` less those of ``base``."""
+    """Counts of ``ops`` less those of ``base``, by kind."""
     base = base or Counter()
-    imad = sum(v for k, v in ops.items() if k.startswith("IMAD")) - sum(
-        v for k, v in base.items() if k.startswith("IMAD"))
-    total = sum(ops.values()) - sum(base.values())
-    return {"IMAD": imad, "other": total - imad, "total": total,
-            "top": dict((ops - base).most_common(8))}
+
+    def count(c: Counter, prefixes) -> int:
+        return sum(v for k, v in c.items() if k.startswith(prefixes))
+
+    out = {kind: count(ops, p) - count(base, p) for kind, p in _KINDS.items()}
+    out["total"] = sum(ops.values()) - sum(base.values())
+    out["other"] = out["total"] - out["IMAD"]
+    out["top"] = dict((ops - base).most_common(8))
+    return out
+
+
+def _less(a: dict, b: dict) -> dict:
+    """Summary ``a`` less summary ``b``, kind by kind."""
+    return {k: a[k] - b[k] for k in a if k != "top"}
+
+
+def _permutation(full: dict, part: dict) -> dict:
+    return {k: ROUNDS_FULL * full[k] + ROUNDS_PARTIAL * part[k] for k in full if k != "top"}
+
+
+def _probes(funcs: dict[str, Counter]) -> dict[str, Counter]:
+    return {k[len("probe_"):]: v for k, v in funcs.items() if k.startswith("probe_")}
 
 
 def probe_counts(csrc: Path, work: Path) -> dict:
     src = work / "probes.cu"
     lazy = (csrc / "bn254_fast.cuh").exists()
+    mxu_src = csrc / "poseidon_mxu.cu"
+    mxu = mxu_src.exists()
     src.write_text(PROBES + (LAZY_PROBES if lazy else ""))
-    funcs = _sass(src, csrc, work / "probes.cubin")
-    probes = {k[len("probe_"):]: v for k, v in funcs.items() if k.startswith("probe_")}
+    probes = _probes(_sass(src, csrc, work / "probes.cubin"))
     out = {}
     for name, ops in probes.items():
         if name in ("base", "madd_base"):
             continue
         out[name] = _summary(ops, probes["madd_base" if name == "madd" else "base"])
     if lazy:
-        full, part = out["round_full"], out["round_partial"]
-        out["permutation"] = {key: ROUNDS_FULL * full[key] + ROUNDS_PARTIAL * part[key]
-                              for key in ("IMAD", "other", "total")}
+        out["permutation"] = _permutation(out["round_full"], out["round_partial"])
+    if mxu:
+        mxu_text = mxu_src.read_text()
+        rounds = "perm_round" in mxu_text
+        src = work / "probes_mxu.cu"
+        src.write_text((MXU_RED_SHARED if "TensorCoreReducer" in mxu_text else MXU_RED_REGISTERS)
+                       + MXU_PROBES + (MXU_ROUND_PROBES if rounds else ""))
+        probes = _probes(_sass(src, csrc, work / "probes_mxu.cubin"))
+        red = _summary(probes["mxu_reduce2"], probes["mxu_reduce1"])
+        setup = _less(_summary(probes["mxu_reduce1"], probes["base"]), red)
+        out["mxu_reduction"], out["mxu_setup"] = red, setup
+        names = ["mxu_pow5"] + (["mxu_round_full", "mxu_round_partial"] if rounds else [])
+        for name in names:
+            out[name] = _less(_summary(probes[name], probes["base"]), setup)
+        if rounds:
+            out["mxu_permutation"] = _permutation(out["mxu_round_full"],
+                                                  out["mxu_round_partial"])
     return out
 
 
@@ -156,8 +236,9 @@ def main() -> int:
         csrc = Path(root).resolve() / "circuits_halo2_tpu_torch" / "csrc"
         result[root] = {"probes": probe_counts(csrc, d), "kernels": kernel_counts(csrc, d)}
         for name, c in result[root]["probes"].items():
-            print(f"{root}: {name:16s} IMAD {c['IMAD']:7d}  other {c['other']:7d}  "
-                  f"total {c['total']:7d}", flush=True)
+            print(f"{root}: {name:18s} IMAD {c['IMAD']:7d}  other {c['other']:7d}  "
+                  f"total {c['total']:7d}  IMMA {c['IMMA']:4d}  SHFL {c['SHFL']:4d}  "
+                  f"shared {c['shared']:4d}", flush=True)
     print(json.dumps(result), flush=True)
     return 0
 

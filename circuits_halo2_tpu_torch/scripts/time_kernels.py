@@ -1,4 +1,4 @@
-"""Time K1, K2 and K3 at the main path's shapes on one GPU, for one checkout.
+"""Time K1-K6 at their paths' shapes on one GPU, for one checkout.
 
     python circuits_halo2_tpu_torch/scripts/time_kernels.py [--root DIR] [--k 13,14]
 
@@ -11,9 +11,14 @@ K2 at 2^20 states, and K3 at each ``--k`` (n = 2^k points, L =
 ``msm._seg_chunk_len(n)``, 128 at k = 13) for a commitment batch of 3
 columns of random scalars, for the largest keygen batch
 (``msm.BATCH_LANE_BUDGET``: 16 columns at k = 13) and for 3 columns of
-which 90 % of the scalars are 0. Prints one JSON line with the
-times and the card's name and power limit. Inputs are random canonical
-values from ``--seed``.
+which 90 % of the scalars are 0. Then K4 at 2^20 messages for L = 2 and
+3 (on the same messages as K1, as plain residues), the 2^20 tree root
+through K4 (its 21 launches, each fenced by CUDA events, summed; digests
+and balances from ``--seed``), K5's ``boundary`` and ``mxu_mul`` at 2^16
+lanes x 64 iterations (wrapper time, and ns per element-iteration by the
+experiment's dual-ITERS difference) and K6's one reduced multiply at
+1024 lanes. Prints one JSON line with the times and the card's name and
+power limit. Inputs are random canonical values from ``--seed``.
 """
 
 from __future__ import annotations
@@ -38,6 +43,38 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def k4_root_ms(torch, np, DT, PM, args) -> tuple[float, int]:
+    """The root of a 2^20-entry tree through K4: the summed CUDA-event time
+    of its launches, mean over ``--iters`` roots after a warm one, and the
+    launches of one."""
+    rng = np.random.default_rng(args.seed)
+    n = 1 << 20
+    digests = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
+    balances = rng.integers(0, 1 << 40, size=(n, 1), dtype=np.uint64)
+    hash_batch_mxu = PM.hash_batch_mxu
+    spans = []
+
+    def timed(inputs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = hash_batch_mxu(inputs)
+        end.record()
+        spans.append((start, end))
+        return got
+
+    timed.launches = 0  # hash_batch_mxu counts its launches on the module's name
+    PM.hash_batch_mxu = timed
+    try:
+        DT.tree_root_mxu(digests, balances, "cuda:0")
+        spans.clear()
+        for _ in range(args.iters):
+            DT.tree_root_mxu(digests, balances, "cuda:0")
+        torch.cuda.synchronize()
+    finally:
+        PM.hash_batch_mxu = hash_batch_mxu
+    return sum(s.elapsed_time(e) for s, e in spans) / args.iters, len(spans) // args.iters
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
@@ -52,10 +89,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("time_kernels.py needs a CUDA device")
     from circuits_halo2_tpu_torch import build, native
+    from circuits_halo2_tpu_torch.merkle import device_tree as DT
     from circuits_halo2_tpu_torch.ops import field_torch as FT
     from circuits_halo2_tpu_torch.ops import msm as M
     from circuits_halo2_tpu_torch.ops import msm_kernel as MK
     from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
+    from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
+    from circuits_halo2_tpu_torch.scripts import exp_poseidon_mxu as EXP
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -73,6 +113,7 @@ def main() -> int:
     for length in (2, 3):
         inp = canonical(length, n).movedim(0, 1).contiguous()
         out[f"k1_L{length}"] = cuda_ms(torch, lambda: PK.hash_batch(inp), args.iters)
+        out[f"k4_L{length}"] = cuda_ms(torch, lambda: PM.hash_batch_mxu(inp), args.iters)
     a, b = canonical(n), canonical(n)
     out["k2"] = cuda_ms(torch, lambda: PK.permute(a, b), args.iters)
 
@@ -92,6 +133,14 @@ def main() -> int:
             px, py, pv = pxy[:16], pxy[16:], valid[perm]
             tag = f"k3_k{k}_b{batch}" + (f"_z{round(zeros * 100)}" if zeros else "")
             out[tag] = cuda_ms(torch, lambda: MK.segmented_scan(px, py, pv, seg, L), args.iters)
+    out["k4_root"], out["k4_root_launches"] = k4_root_ms(torch, np, DT, PM, args)
+    for variant in ("boundary", "mxu_mul"):
+        x, y = EXP.make_inputs(variant, EXP.LANES, args.seed, dev)
+        out[f"k5_{variant}"] = cuda_ms(torch, lambda: EXP.run(variant, x, y, EXP.ITERS_LO),
+                                       args.iters)
+        out[f"k5_{variant}_ns"] = EXP.time_variant(variant, dev, args.iters)["ns_per_elem_iter"]
+    x, y = EXP.make_inputs("mxu_mul", 8 * 128, args.seed, dev)
+    out["k6"] = cuda_ms(torch, lambda: EXP.mxu_mul_once(x, y), args.iters)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -7,8 +7,10 @@ compile as plain C++ (``BN_HD``; the carry-chain primitives of
 ``__global__`` launchers do not. A small harness runs the lazy field
 operations, the sponges, the bare permutation and the lane scan exactly
 as one CUDA thread would (K4's matrix product done by a plain loop in place
-of the tensor cores) and the results are held to Python ints and to the
-plain torch versions. Exact. The launches themselves are checked on the card
+of the tensor cores), K4's warp reduction through the kernel's own index
+functions for 32 lanes at once (a shuffle as an array read, ``mma`` by the
+PTX fragment definition), and the results are held to Python ints and to
+the plain torch versions. Exact. The launches themselves are checked on the card
 (``chip_smoke.py``, ``-m cuda`` tests)."""
 
 import shutil
@@ -47,6 +49,60 @@ template <class T> static std::vector<T> take(size_t n) {
     std::vector<T> v(n);
     if (fread(v.data(), sizeof(T), n, stdin) != n) exit(2);
     return v;
+}
+
+// K4's warp reduction for 32 lanes at once, through the kernel's own index
+// functions: a shuffle is a read of the partner lane's array, and mma.sync
+// m16n8k32 (u8 x u8 -> s32) is the PTX ISA's fragment definition
+// (g = lane >> 2, t = lane & 3): A element (row, k) in register
+// (row >= 8) + 2 (k >= 16) of lane (row % 8, (k % 16) / 4), byte k % 4;
+// B element (k, n) in register (k >= 16) of lane (n, (k % 16) / 4), byte
+// k % 4; C element (row, n) in register 2 (row >= 8) + n % 2 of lane
+// (row % 8, n / 2).
+template <int R, int B> static void model_round(uint32_t x[32][4][B]) {
+    uint32_t v[32][2][B];
+    for (int l = 0; l < 32; ++l) mxu::quad_send<R, B>(v[l], x[l], l);
+    for (int l = 0; l < 32; ++l) mxu::quad_recv<R, B>(x[l], v[l ^ mxu::xor_mask<R>()], l);
+}
+
+static int byte_of(uint32_t w, int k) { return (w >> (8 * (k % 4))) & 0xff; }
+
+static void model_mma(int32_t c[32][4], const uint32_t a[32][4], const uint32_t b[32][2]) {
+    for (int row = 0; row < 16; ++row)
+        for (int n = 0; n < 8; ++n) {
+            int32_t d = 0;
+            for (int k = 0; k < 32; ++k)
+                d += byte_of(a[(row % 8) * 4 + (k % 16) / 4][(row >= 8) + 2 * (k >= 16)], k)
+                   * byte_of(b[n * 4 + (k % 16) / 4][k >= 16], k);
+            c[(row % 8) * 4 + n / 2][2 * (row >= 8) + n % 2] += d;
+        }
+}
+
+static void model_warp(uint32_t r[32][8], const uint32_t* t, const uint32_t* wb) {
+    uint32_t x[32][4][4], y[32][4][4];
+    for (int l = 0; l < 32; ++l) mxu::word_blocks(x[l], t + 16 * l);
+    model_round<0, 4>(x);
+    model_round<1, 4>(x);
+    for (int mt = 0; mt < 2; ++mt)
+        for (int nt = 0; nt < 4; ++nt) {
+            int32_t c[32][4] = {};
+            for (int ks = 0; ks < 2; ++ks) {
+                uint32_t a[32][4], b[32][2];
+                for (int l = 0; l < 32; ++l) {
+                    mxu::a_frag(a[l], x[l], mt, ks);
+                    for (int reg = 0; reg < 2; ++reg) b[l][reg] = wb[16 * l + mxu::b_index(ks, nt, reg)];
+                }
+                model_mma(c, a, b);
+            }
+            for (int l = 0; l < 32; ++l) mxu::c_pairs(y[l], c[l], mt, nt);
+        }
+    model_round<0, 4>(y);
+    model_round<1, 4>(y);
+    for (int l = 0; l < 32; ++l) {
+        uint32_t p[16];
+        mxu::lane_pairs(p, y[l]);
+        mxu::finish_pairs(r[l], p);
+    }
 }
 
 int main(int argc, char** argv) {
@@ -101,6 +157,27 @@ int main(int argc, char** argv) {
                 bnf::canon<bn254::Fq>(o + 32, a);
                 bnf::mul2<bn254::Fq>(o + 40, a, c0, b, c1);
             }
+        }
+        fwrite(out.data(), 4, out.size(), stdout);
+    } else if (mode == "warp") {  // n products (n a multiple of 32): the warp model, then HostReducer
+        auto w = take<uint8_t>(32 * 64);
+        auto wb = take<uint32_t>(32 * 16);
+        auto t = take<uint32_t>((size_t)16 * n);
+        std::vector<uint32_t> out((size_t)16 * n);
+        const mxu::HostReducer red{w.data()};
+        for (long i = 0; i < n; i += 32) {
+            uint32_t r[32][8];
+            model_warp(r, &t[16 * i], wb.data());
+            for (int l = 0; l < 32; ++l) memcpy(&out[8 * (i + l)], r[l], 32);
+        }
+        for (long i = 0; i < n; ++i) red.reduce(&out[8 * (n + i)], &t[16 * i]);
+        fwrite(out.data(), 4, out.size(), stdout);
+    } else if (mode == "canon") {  // n values V < 2^268 of 9 words -> V mod p, then the quotients
+        auto v = take<uint32_t>((size_t)9 * n);
+        std::vector<uint32_t> out((size_t)9 * n);
+        for (long i = 0; i < n; ++i) {
+            mxu::canon(&out[8 * i], &v[9 * i]);
+            out[8 * n + i] = mxu::quotient(((uint64_t)v[9 * i + 8] << 32) | v[9 * i + 7]);
         }
         fwrite(out.data(), 4, out.size(), stdout);
     } else {  // scan: n points, L steps per lane
@@ -194,6 +271,66 @@ def test_mxu_sponge_thread_code_matches_plain(harness, length):
     got = FT.words_to_limbs(torch.as_tensor(_run(harness, "mxu_sponge", length, n, payload)
                                             .reshape(8, n)), 0)
     assert torch.equal(got, PM.hash_batch_mxu_ref(inp))
+
+
+def _ints(words: np.ndarray, n_words: int) -> list[int]:
+    """Rows of little-endian 32-bit words -> ints."""
+    w = words.view(np.uint32).reshape(-1, n_words)
+    return [sum(int(x) << (32 * i) for i, x in enumerate(row)) for row in w]
+
+
+def _word_rows(values, n_words: int) -> np.ndarray:
+    return np.frombuffer(b"".join(int(v).to_bytes(4 * n_words, "little") for v in values),
+                         dtype="<u4").reshape(len(values), n_words)
+
+
+def _products(case: str, rng) -> list[int]:
+    """64 product values (two warps) below 2^512."""
+    if case == "random":
+        return [int.from_bytes(rng.bytes(64), "little") for _ in range(64)]
+    if case == "bytes_0_or_ff":
+        vals = [int.from_bytes(bytes(rng.choice([0, 0xFF], 64).astype(np.uint8)), "little")
+                for _ in range(62)]
+        return vals + [0, (1 << 512) - 1]
+    # ragged: the second warp has 11 active lanes; the rest, as in the
+    # kernel, multiply zeros
+    vals = [int.from_bytes(rng.bytes(64), "little") for _ in range(43)]
+    return vals + [0] * 21
+
+
+@pytest.mark.parametrize("case", ["random", "bytes_0_or_ff", "ragged"])
+def test_mxu_warp_model_matches_host_reducer(harness, case):
+    """K4's register reduction (quad transposes, A/C fragment maps, the B
+    packing of ``fragment_weights``) run for whole warps against the plain
+    matrix-product reducer and Python's ``t % p``."""
+    vals = _products(case, np.random.default_rng(len(case)))
+    payload = (PM.reduce_weights().tobytes() + PM.fragment_weights().tobytes()
+               + _word_rows(vals, 16).tobytes())
+    out = _ints(_run(harness, "warp", 0, len(vals), payload), 8)
+    model, host = out[: len(vals)], out[len(vals):]
+    assert host == [v % F.FR_MOD for v in vals]
+    assert model == host
+
+
+def test_mxu_canon_edges(harness):
+    """``mxu::canon`` at its edges: V = 0, p - 1, p, 3p - 1, 2^268 - 1, and
+    V >> 224 at k·d - 1 and k·d over the range of V >> 224 (< 2^44), held
+    to Python's V % p; its reciprocal quotient held to the exact floor
+    (V >> 224) // d (one low would still give V % p)."""
+    p, d = F.FR_MOD, PM.QDIV
+    rng = np.random.default_rng(11)
+    vals = [0, p - 1, p, 2 * p - 1, 2 * p, 3 * p - 1, (1 << 268) - 1, (1 << 256) - 1]
+    for k in [1, 2, 3, 1000, 5000, (1 << 44) // d - 1, (1 << 44) // d]:
+        for top in (k * d - 1, k * d):
+            low = int.from_bytes(rng.bytes(28), "little")
+            vals += [top << 224, (top << 224) + (1 << 224) - 1, (top << 224) + low]
+    vals += [int.from_bytes(rng.bytes(33), "little") >> 4 for _ in range(40)]  # < 2^260
+    vals += [int.from_bytes(rng.bytes(34), "little") >> 4 for _ in range(40)]  # < 2^268
+    assert max(vals) < 1 << 268
+    out = _run(harness, "canon", 0, len(vals), _word_rows(vals, 9).tobytes())
+    n = len(vals)
+    assert out[8 * n:].view(np.uint32).tolist() == [(v >> 224) // d for v in vals]
+    assert _ints(out[: 8 * n], 8) == [v % p for v in vals]
 
 
 FIELDS = {"fr": (0, F.FR_MOD), "fq": (1, F.FQ_MOD)}

@@ -80,8 +80,14 @@ def test_reduce_weights():
     assert w.shape == (32, 64) and w.dtype == np.uint8
     for h in (0, 31, 32, 47, 63):
         assert int.from_bytes(bytes(w[:, h]), "little") == pow(2, 8 * h, P)
-    tiles = PM.tiled_weights().reshape(2, 4, 16, 16)
-    assert np.array_equal(tiles[1, 2], w[16:32, 32:48])
+    # B fragments of mma.m16n8k32: lane 4g + t, word (ks·4 + nt)·2 + reg,
+    # byte e is W[8·nt + g][32·ks + 16·reg + 4t + e]
+    wb = PM.fragment_weights()
+    assert wb.shape == (32, 16) and wb.dtype == np.uint32
+    frags = wb.view(np.uint8).reshape(8, 4, 2, 4, 2, 4)  # g t ks nt reg e
+    assert np.array_equal(frags[5, 2, 1, 3, 0], w[29, 40:44])
+    assert np.array_equal(frags[:, :, 0, 0, 0].reshape(8, 16), w[0:8, 0:16])
+    assert np.array_equal(frags[:, :, 1, 2, 1].reshape(8, 16), w[16:24, 48:64])
 
 
 @pytest.mark.parametrize("length", [1, 2, 3, 4])
