@@ -3,18 +3,30 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``circuits_halo2_tpu_torch/csrc``,
-checks each of the six (K1-K6) against its plain torch version on the card,
-then drives two paths through their user entry points, each with the launch
-counts set to 0 just before it and read just after:
+checks each of the seven (K1-K6 and X4, the EC-FFT) against its plain
+torch version on the card, then drives two paths through their user entry
+points, each with the launch counts set to 0 just before it and read just
+after:
 
-- the proving path at the reference criterion size (a 2^20-entry Merkle
-  sum tree, N_CURRENCIES=1, N_BYTES=8, LEVELS=20, k=13) and at the
-  entry_16 k=11 fixture, where the proofs must equal the JAX package's
-  byte for byte (tests/fixtures_torch_proofs.json): K1 and K3;
-- the Poseidon engine at the same width: the criterion tree's root built
+- the proving path (K1, K3 and X4):
+  - the reference criterion config (a 2^20-entry Merkle sum tree,
+    N_CURRENCIES=1, N_BYTES=8, LEVELS=20, k=13): the tree, its sorted
+    build, keygen, a proof that verifies, and the proofs of the JAX
+    package's seeded synthetic witness, equal to its bytes under both
+    transcripts (tests/fixtures_torch_criterion.json);
+  - the entry_16 k=11 fixture, whose proofs must equal the JAX package's
+    byte for byte (tests/fixtures_torch_proofs.json);
+  - SRS files larger than 2^k downsized through X4: the hermez-raw-11
+    ceremony file to k=10 (its Lagrange bases hash to the JAX package's)
+    and the north-star SRS from 2^17 to 2^13 (three identities, then a
+    criterion proof that verifies);
+  - the north-star config (2^16 entries, 2 currencies, N_BYTES=8,
+    LEVELS=16, k=17): tree, keygen, a proof that verifies, and, where the
+    fixture has them, the JAX package's north-star proofs byte for byte;
+- the Poseidon engine at the criterion width: the 2^20 tree's root
   through the tensor-core sponge (K4) from raw digests and sums, equal to
-  the host root; the bare permutation (K2) of the 2^20 leaf states; and
-  the probe experiment (K5, with the K6 exactness check).
+  the host root; the bare permutation (K2) of the leaf states; and the
+  probe experiment (K5, with the K6 exactness check).
 
 Prints one line per phase with its wall time, the kernels' JSON summary
 (times, launches, bounds), the card's name and power limit, and last
@@ -24,6 +36,7 @@ non-zero and no ``ok`` line is printed. Needs CUDA; imports no JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -37,6 +50,9 @@ ROOT = Path(__file__).resolve().parent
 TESTS = ROOT / "tests"
 SEED = 0
 CRITERION = (20, 1, 8, 13)  # LEVELS, N_CURRENCIES, N_BYTES, k (BASELINE.md:10)
+NORTHSTAR = (16, 2, 8, 17)  # the same for the north-star config (bench_suite.py:267-338)
+USER = "dxGaEAii"
+CRITERION_FIXTURE = TESTS / "fixtures_torch_criterion.json"
 G1_GEN = (1, 2)  # the BN254 G1 generator, affine
 
 # Peak rates of one H100 SXM at 700 W, for the bounds. Tensor cores and
@@ -58,6 +74,11 @@ MADD_WIDE = 7 * MUL + 4 * SQR  # a mixed add (madd-2007-bl): 7 products, 4 squar
 FE = 32  # bytes of one field element as the kernels read and write it (8 u32 words)
 # K3 per point: the px and py limbs, the digit and the flag in, three limb outputs
 K3_BYTES = 2 * 16 * 8 + 8 + 1 + 3 * 16 * 8
+# X4: a Jacobian doubling (dbl-2009-l) 2 products and 5 squarings, a complete
+# addition (add-2007-bl) 11 products and 5 squarings; a point 96 bytes (three
+# 32-byte coordinates), a plain scalar 32
+DBL_WIDE = 2 * MUL + 5 * SQR
+ADD_WIDE = 11 * MUL + 5 * SQR
 
 
 def log(msg: str) -> None:
@@ -180,9 +201,10 @@ def check_k1(device, rng, report):
 def check_k3(device, rng, report):
     """K3 against its plain version on what the Pippenger hands it: random
     scalars with 0, p - 1 and P + (-P) at 2^11 and 2^13 (4 columns), a
-    keygen batch of 16 columns at 2^13, and skewed digits (90 % zero
-    scalars, 3 columns: bucket 0 spans whole chunks) at 2^13 and at 2^14,
-    whose chunks are twice as long."""
+    keygen batch of 16 columns at 2^13, skewed digits (90 % zero scalars, 3
+    columns: bucket 0 spans whole chunks) at 2^13 and at 2^14, whose chunks
+    are twice as long, and 3 columns at the north star's 2^17, whose chunks
+    have the longest length, 512."""
     from circuits_halo2_tpu_torch import native
     from circuits_halo2_tpu_torch.ops import field_torch as FT
     from circuits_halo2_tpu_torch.ops import msm as M
@@ -190,7 +212,7 @@ def check_k3(device, rng, report):
 
     bases = {}
     for logn, batch, zeros in ((11, 4, 0.0), (13, 4, 0.0), (13, 16, 0.0), (13, 3, 0.9),
-                                (14, 3, 0.9)):
+                                (14, 3, 0.9), (17, 3, 0.0)):
         n = 1 << logn
         if logn not in bases:
             points = native.g1_fixed_base_muls(G1_GEN, random_fr(rng, n))
@@ -289,6 +311,100 @@ def check_k5_k6(device, report):
     log("K6 one reduced multiply at 8 x 128 lanes: equal to plain torch")
 
 
+def check_x4(device, rng, report):
+    """X4 against its plain version, limb for limb: at n = 16 with an
+    infinity lane, the forward transform and the n^-1-scaled inverse as one
+    batch of two, both rows also against the host ``ec_fft``, and the user
+    entry ``ec_fft_device`` (forward, scaled inverse) against the host too;
+    then at the two shapes the main path hands X4, each the scaled inverse
+    that ``downsize`` runs: hermez-raw-11's first 2^10 monomial points,
+    where kernel and plain version are timed (CUDA events; the plain
+    version one launch), and 2^13 points of a setup (the 2^17 -> 2^13
+    downsize)."""
+    from circuits_halo2_tpu_torch import native
+    from circuits_halo2_tpu_torch.ops import curve as C
+    from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
+    from circuits_halo2_tpu_torch.ops import field as F
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
+    from circuits_halo2_tpu_torch.utils import ec_fft as EC
+    from circuits_halo2_tpu_torch.utils.srs import ParamsKZG, setup_cached
+
+    n = 16
+    points = native.g1_fixed_base_muls(G1_GEN, random_fr(rng, n))
+    points[7] = None
+    omega = NTT.omega_for_k(4)
+    omega_inv, n_inv = F.fr_inv(omega), F.fr_inv(n)
+    args = EC.transform_inputs(points, [(omega, 1), (omega_inv, n_inv)], device)
+    got, want = EK.ec_fft(*args), EK.ec_fft_ref(*args)
+    err = max_abs_err(got, want)
+    require(err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)),
+            "X4 differs from its plain version at n=16")
+    host_fwd = EC.ec_fft(points, omega)
+    host_inv = [None if p is None else C.g1_mul(p, n_inv) for p in EC.ec_fft(points, omega_inv)]
+    require(EC.jacobian_to_affine(*got) == [host_fwd, host_inv], "X4 differs from the host ec_fft")
+    require(EC.ec_fft_device(points, omega, 1, device) == host_fwd
+            and EC.ec_fft_device(points, omega_inv, n_inv, device) == host_inv,
+            "ec_fft_device differs from the host ec_fft")
+    log("X4 n=16 (forward and scaled inverse, infinity lane): equal to plain torch and to "
+        "the host ec_fft")
+
+    k = 10
+    ceremony = ParamsKZG.read(str(TESTS / "fixtures_ptau_hermez-raw-11"))
+    transforms = [(F.fr_inv(NTT.omega_for_k(k)), F.fr_inv(1 << k))]
+    args = EC.transform_inputs(ceremony.g[: 1 << k], transforms, device)
+    got = EK.ec_fft(*args)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = EK.ec_fft_ref(*args)
+    end.record()
+    torch.cuda.synchronize()
+    err = max(err, max_abs_err(got, want))
+    require(err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)),
+            "X4 differs from its plain version at the ceremony downsize (n=2^10)")
+    report["x4"] = [cuda_ms(lambda: EK.ec_fft(*args), 3), start.elapsed_time(end),
+                    *x4_bound(1 << k, transforms)]
+    log(f"X4 n=2^10 (hermez-raw-11, scaled inverse): equal to plain torch; kernel "
+        f"{report['x4'][0]:.3f} ms, plain torch {report['x4'][1]:.1f} ms, bound "
+        f"{report['x4'][2]:.4f} ms ({report['x4'][3]})")
+
+    k = CRITERION[3]
+    transforms = [(F.fr_inv(NTT.omega_for_k(k)), F.fr_inv(1 << k))]
+    args = EC.transform_inputs(setup_cached(k).g, transforms, device)
+    got, want = EK.ec_fft(*args), EK.ec_fft_ref(*args)
+    err = max(err, max_abs_err(got, want))
+    require(err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)),
+            "X4 differs from its plain version at the full-width downsize (n=2^13)")
+    report["x4_err"] = err
+    log("X4 n=2^13 (setup(13), scaled inverse): equal to plain torch")
+
+
+def x4_bound(n: int, transforms) -> tuple[float, str]:
+    """X4's least time for these transforms: the fewest products of each
+    butterfly's double-and-add by its twiddle (a doubling per bit below the
+    top one, a complete add per set bit after the first) and of its two
+    adds, and of the scale pass; the bytes of the points in and out, the
+    twiddles and the scales."""
+    from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
+    from circuits_halo2_tpu_torch.ops import field as F
+    from circuits_halo2_tpu_torch.ops import field_torch as FT
+
+    def smul(k: int) -> int:
+        k %= F.FR_MOD
+        return 0 if k == 0 else (k.bit_length() - 1) * DBL_WIDE + (bin(k).count("1") - 1) * ADD_WIDE
+
+    wide = 0
+    for omega, scale in transforms:
+        twiddles = FT.limbs_to_ints(EK.twiddle_table(n, omega % F.FR_MOD))
+        for s in range(n.bit_length() - 1):
+            butterflies = n >> (s + 1)  # per twiddle of the stage
+            wide += sum(butterflies * (smul(w) + 2 * ADD_WIDE)
+                        for w in twiddles[(1 << s) - 1 : (2 << s) - 1])
+        if scale % F.FR_MOD != 1:
+            wide += n * smul(scale)
+    nbytes = len(transforms) * (2 * n * 3 * FE + (n - 1) * FE + FE)
+    return bound_ms(wide, 0, nbytes)
+
+
 def poseidon_engine(device, digests, balances, host_root):
     """The Poseidon engine's entry points at the criterion tree's width."""
     from circuits_halo2_tpu_torch.merkle.device_tree import tree_root_mxu
@@ -320,36 +436,87 @@ def poseidon_engine(device, digests, balances, host_root):
 
 
 def host_tree_root(digests: np.ndarray, balances: np.ndarray):
-    """Root of the 1-currency tree by the native host sponge."""
+    """Root of the tree of (digest, balances) leaves, any number of
+    currencies, by the native host sponge."""
     from circuits_halo2_tpu_torch import native
     from circuits_halo2_tpu_torch.ops.field_torch import FR
 
     FR_MOD = FR.mod_int
     users = [int.from_bytes(d.tobytes(), "big") % FR_MOD for d in digests]
-    sums = [int(b) for b in balances[:, 0]]
-    hashes = native.poseidon_hash_batch(list(zip(users, sums)), 2)
+    sums = [[int(b) for b in balances[:, c]] for c in range(balances.shape[1])]
+    hashes = native.poseidon_hash_batch(list(zip(users, *sums)), 1 + len(sums))
     while len(hashes) > 1:
-        sums = [sums[i] + sums[i + 1] for i in range(0, len(sums), 2)]
+        sums = [[s[i] + s[i + 1] for i in range(0, len(s), 2)] for s in sums]
         hashes = native.poseidon_hash_batch(
-            [(s % FR_MOD, hashes[2 * i], hashes[2 * i + 1]) for i, s in enumerate(sums)], 3)
-    return hashes[0], [sums[0] % FR_MOD]
+            [(*(s[i] % FR_MOD for s in sums), hashes[2 * i], hashes[2 * i + 1])
+             for i in range(len(hashes) // 2)], 2 + len(sums))
+    return hashes[0], [s[0] % FR_MOD for s in sums]
+
+
+def first_difference(got: str, want: str) -> str:
+    """Where two hex strings first differ, for a failure message."""
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    return f"first differing byte {i // 2} of {len(got) // 2} (expected {len(want) // 2})"
+
+
+def synthetic_proofs(art, fix: dict, name: str) -> None:
+    """Both transcripts' proofs of a fixture's seeded synthetic witness
+    (``synthetic_merkle_proof``) equal the JAX package's byte for byte."""
+    from circuits_halo2_tpu_torch.merkle.mst import Entry, synthetic_merkle_proof
+    from circuits_halo2_tpu_torch.models.mst_inclusion import MstInclusionCircuit
+    from circuits_halo2_tpu_torch.utils import pipeline
+
+    witness = synthetic_merkle_proof(fix["levels"], fix["n_currencies"],
+                                     Entry(fix["user"], fix["balances"]), seed=fix["seed"])
+    circuit = MstInclusionCircuit.init(fix["levels"], fix["n_currencies"], fix["n_bytes"], witness)
+    instances = circuit.instances()
+    require([[hex(v) for v in col] for col in instances] == fix["instances"],
+            f"{name} synthetic witness: instances differ from the fixture")
+    with Phase(f"{name} Keccak proof of the synthetic witness (gen_proof_solidity_calldata)"):
+        got = pipeline.gen_proof_solidity_calldata(art, circuit).proof[2:]
+        require(got == fix["keccak_proof"],
+                f"{name} Keccak proof differs from the JAX package's: "
+                + first_difference(got, fix["keccak_proof"]))
+        log(f"{name} Keccak proof {len(got) // 2} B == JAX fixture")
+    with Phase(f"{name} Blake2b proof of the synthetic witness (full_prover)"):
+        got = pipeline.full_prover(art, circuit, instances).hex()
+        require(got == fix["blake2b_proof"],
+                f"{name} Blake2b proof differs from the JAX package's: "
+                + first_difference(got, fix["blake2b_proof"]))
+        require(pipeline.full_verifier(art, bytes.fromhex(got), instances),
+                f"{name} Blake2b proof does not verify")
+        log(f"{name} Blake2b proof {len(got) // 2} B == JAX fixture, verifies")
+
+
+def verify_and_flip(art, proof: bytes, instances, name: str) -> None:
+    from circuits_halo2_tpu_torch.utils import pipeline
+
+    require(pipeline.full_verifier(art, proof, instances), f"{name} proof does not verify")
+    bad = [list(instances[0])]
+    bad[0][2] += 1
+    require(not pipeline.full_verifier(art, proof, bad),
+            f"{name} proof verifies against a flipped instance")
+    log(f"{name} proof {len(proof)} B verifies; flipped instance rejected")
 
 
 def criterion(device):
-    """Reference criterion config: 2^20 entries, LEVELS=20, k=13."""
-    from circuits_halo2_tpu_torch.merkle.device_tree import build_device_tree
+    """Reference criterion config: 2^20 entries, LEVELS=20, k=13; then its
+    sorted build, and the JAX package's proofs of the synthetic witness."""
+    from circuits_halo2_tpu_torch.merkle.device_tree import (build_device_tree,
+                                                             build_device_tree_sorted)
     from circuits_halo2_tpu_torch.merkle.mst import Entry
     from circuits_halo2_tpu_torch.models.mst_inclusion import MstInclusionCircuit
     from circuits_halo2_tpu_torch.utils import pipeline
 
     levels, ncur, nbytes, k = CRITERION
     n = 1 << levels
-    entry0 = Entry("dxGaEAii", [11888])
+    entry0 = Entry(USER, [11888])
     rng = np.random.default_rng(SEED)
     digests = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
     digests[0] = np.frombuffer(entry0.hashed_username.to_bytes(32, "big"), dtype=np.uint8)
     balances = rng.integers(0, 1 << 40, size=(n, ncur), dtype=np.uint64)
     balances[0, 0] = entry0.balances[0]
+    usernames = rng.integers(0, 256, size=(n, 8), dtype=np.uint8).view("S8")[:, 0]
 
     with Phase("criterion tree 2^20 on device"):
         tree = build_device_tree(digests, balances, device)
@@ -367,13 +534,21 @@ def criterion(device):
         instances = circuit.instances()
         proof = pipeline.full_prover(art, circuit, instances)
     with Phase("criterion verify k=13"):
-        if not pipeline.full_verifier(art, proof, instances):
-            raise AssertionError("criterion proof does not verify")
-        bad = [list(instances[0])]
-        bad[0][2] += 1
-        if pipeline.full_verifier(art, proof, bad):
-            raise AssertionError("criterion proof verifies against a flipped instance")
-        log(f"criterion proof {len(proof)} B verifies; flipped instance rejected")
+        verify_and_flip(art, proof, instances, "criterion")
+    synthetic_proofs(art, json.loads(CRITERION_FIXTURE.read_text())["criterion"], "criterion")
+
+    with Phase("criterion sorted tree 2^20 on device (build_device_tree_sorted)"):
+        stree, order = build_device_tree_sorted(usernames, digests, balances, device)
+        sroot = stree.root()
+    with Phase("criterion sorted tree host reference"):
+        require(sroot[1] == root[1], f"sorted root balances {sroot[1]} != {root[1]}")
+        ordered = usernames[order]
+        require(bool((ordered[:-1] <= ordered[1:]).all()),
+                "build_device_tree_sorted did not sort the usernames")
+        require(sroot == host_tree_root(digests[order], balances[order]),
+                "sorted device root differs from the host root of the permuted leaves")
+        log(f"sorted root {hex(sroot[0])} == host root of the permuted leaves, "
+            f"balances {sroot[1]} == unsorted")
     return digests, balances, host_root, circuit
 
 
@@ -413,15 +588,107 @@ def entry16(device):
         log(f"Blake2b proof {len(proof)} B == JAX fixture, verifies")
 
 
-def timings(device, rng, card, probes):
+def ceremony_downsize(device):
+    """The hermez-raw-11 ceremony file downsized to k=10 through X4: the
+    Lagrange bases hash to the JAX package's (fixture "downsize")."""
+    from circuits_halo2_tpu_torch.ops import curve as C
+    from circuits_halo2_tpu_torch.utils.srs import ParamsKZG
+
+    fix = json.loads(CRITERION_FIXTURE.read_text())["downsize"]
+    with Phase("hermez-raw-11 downsized to k=10 through X4"):
+        params = ParamsKZG.read(str(TESTS / fix["ptau"])).downsize(fix["k"], device)
+        raw = b"".join(C.g1_to_raw_bytes(p) for p in params.g_lagrange)
+        require(len(params.g_lagrange) == fix["count"]
+                and hashlib.sha256(raw).hexdigest() == fix["g_lagrange_sha256"],
+                "downsized hermez-raw-11 Lagrange bases differ from the JAX package's")
+        log(f"hermez-raw-11 -> k={fix['k']}: {fix['count']} Lagrange bases, sha256 == JAX fixture")
+
+
+def full_width_downsize(device, rng, circuit):
+    """The north-star SRS (2^17 points) downsized to the criterion's 2^13
+    through X4 by ``generate_setup_artifacts``: the monomial bases are its
+    first 2^13, sum_i L_i(s) = 1 gives sum g_lagrange = G, a polynomial
+    commits alike in both bases; then a criterion proof with these
+    artifacts verifies."""
+    from circuits_halo2_tpu_torch import native
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
+    from circuits_halo2_tpu_torch.utils import pipeline
+    from circuits_halo2_tpu_torch.utils.srs import cached_path, setup_cached
+
+    levels, ncur, nbytes, k = CRITERION
+    n = 1 << k
+    with Phase("north-star SRS setup_cached(17)"):
+        big = setup_cached(NORTHSTAR[3])
+    with Phase("generate_setup_artifacts(13, 2^17 SRS file): downsize through X4 + keygen"):
+        art = pipeline.generate_setup_artifacts(k, str(cached_path(NORTHSTAR[3])), levels, ncur,
+                                                nbytes, device)
+    with Phase("downsized bases: three identities"):
+        g, lagrange = art.params.g, art.params.g_lagrange
+        require(g == big.g[:n], "downsize changed the first 2^13 monomial bases")
+        require(native.g1_msm(lagrange, [1] * n) == G1_GEN, "sum of the Lagrange bases != G")
+        coeffs = random_fr(rng, n)
+        require(native.g1_msm(g, coeffs)
+                == native.g1_msm(lagrange, NTT.ntt_host(coeffs, NTT.omega_for_k(k))),
+                "a polynomial commits differently in the downsized Lagrange bases")
+        log("2^17 -> 2^13: g unchanged, sum g_lagrange == G, commit(c) == commit_lagrange(ntt(c))")
+    with Phase("criterion prove + verify k=13 with the downsized SRS"):
+        instances = circuit.instances()
+        verify_and_flip(art, pipeline.full_prover(art, circuit, instances), instances,
+                        "criterion (downsized SRS)")
+
+
+def northstar(device):
+    """North-star config: 2^16 entries, 2 currencies, N_BYTES=8, LEVELS=16,
+    k=17, seed-0 data (bench_suite.py:286-292)."""
+    from circuits_halo2_tpu_torch.merkle.device_tree import build_device_tree
+    from circuits_halo2_tpu_torch.merkle.mst import Entry
+    from circuits_halo2_tpu_torch.models.mst_inclusion import MstInclusionCircuit
+    from circuits_halo2_tpu_torch.utils import pipeline
+
+    levels, ncur, nbytes, k = NORTHSTAR
+    n = 1 << levels
+    entry0 = Entry(USER, [11888, 41163])
+    rng = np.random.default_rng(SEED)
+    digests = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
+    digests[0] = np.frombuffer(entry0.hashed_username.to_bytes(32, "big"), dtype=np.uint8)
+    balances = rng.integers(0, 1 << 48, size=(n, ncur), dtype=np.uint64)
+    balances[0] = entry0.balances
+
+    with Phase("north-star tree 2^16 x 2 currencies on device (K1)"):
+        tree = build_device_tree(digests, balances, device)
+        root = tree.root()
+    with Phase("north-star tree host reference"):
+        host_root = host_tree_root(digests, balances)
+        require(root == host_root, f"north-star root {root} != host root {host_root}")
+        log(f"north-star root {hex(root[0])} balances {root[1]} == host")
+    with Phase("north-star setup + keygen k=17"):
+        art = pipeline.generate_setup_artifacts(k, None, levels, ncur, nbytes, device)
+    with Phase("north-star prove k=17 (full_prover, Blake2b)"):
+        circuit = MstInclusionCircuit.init(levels, ncur, nbytes, tree.generate_proof(0, entry0))
+        instances = circuit.instances()
+        proof = pipeline.full_prover(art, circuit, instances)
+    with Phase("north-star verify k=17"):
+        verify_and_flip(art, proof, instances, "north-star")
+    fix = json.loads(CRITERION_FIXTURE.read_text()).get("northstar")
+    if fix is None:
+        log("north-star byte comparison skipped: the fixture has no north-star proofs")
+    else:
+        synthetic_proofs(art, fix, "north-star")
+
+
+def timings(device, rng, card, probes, report):
     """Kernel vs plain torch at the paths' shapes (CUDA events, mean of 5
-    warm launches; plain torch one launch), each with its bound."""
+    warm launches, X4 of 3; plain torch one launch), each with its bound."""
+    from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
+    from circuits_halo2_tpu_torch.ops import field as F
     from circuits_halo2_tpu_torch.ops import field_torch as FT
     from circuits_halo2_tpu_torch.ops import msm as M
     from circuits_halo2_tpu_torch.ops import msm_kernel as MK
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
     from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
     from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
     from circuits_halo2_tpu_torch.scripts import exp_poseidon_mxu as EXP
+    from circuits_halo2_tpu_torch.utils import ec_fft as EC
     from circuits_halo2_tpu_torch.utils.srs import setup_cached
 
     out = {}
@@ -485,6 +752,17 @@ def timings(device, rng, card, probes):
     out["k6"] = [cuda_ms(lambda: EXP.mxu_mul_once(x, y), 5),
                  cuda_ms(lambda: EXP.PM.mul_ref(x, y), 1, warm=False),
                  *bound_ms(8 * 128 * wide, 8 * 128 * tensor, 8 * 128 * 3 * FE)]
+
+    n = 1 << 13  # the 2^17 -> 2^13 downsize (its first 2^13 points; setup(13)'s are alike)
+    transforms = [(F.fr_inv(NTT.omega_for_k(13)), F.fr_inv(n))]
+    args = EC.transform_inputs(params.g, transforms, device)
+    ms = cuda_ms(lambda: EK.ec_fft(*args), 3)
+    bound, by = x4_bound(n, transforms)
+    log(f"X4 scaled inverse EC-FFT n=2^13 (14 launches): {ms:.3f} ms, bound {bound:.3f} ms "
+        f"({by}) ({card})")
+    out["x4"] = report["x4"]
+    log(f"X4 scaled inverse EC-FFT n=2^10 (11 launches): {out['x4'][0]:.3f} ms, plain torch "
+        f"{out['x4'][1]:.1f} ms, bound {out['x4'][2]:.4f} ms ({card})")
     return out
 
 
@@ -562,6 +840,7 @@ KERNELS = (  # key, name, source, replaced TPU kernel
     ("k4", "poseidon_sponge_mxu", "csrc/poseidon_mxu.cu", "ops/poseidon_mxu.py:202"),
     ("k5", "poseidon_mxu_probe", "csrc/poseidon_mxu.cu", "scripts/exp_poseidon_mxu.py:180"),
     ("k6", "poseidon_mxu_check", "csrc/poseidon_mxu.cu", "scripts/exp_poseidon_mxu.py:224"),
+    ("x4", "ec_fft", "csrc/ec_fft.cu", "circuits_halo2_tpu/utils/ec_fft.py:181 (XLA, no Pallas)"),
 )
 
 
@@ -573,6 +852,7 @@ def main() -> int:
     log(f"device: {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     from circuits_halo2_tpu_torch import build
+    from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
     from circuits_halo2_tpu_torch.ops import msm_kernel as MK
     from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
     from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
@@ -598,16 +878,22 @@ def main() -> int:
         check_k4(device, rng, report)
     with Phase("K5, K6 vs plain"):
         check_k5_k6(device, report)
+    with Phase("X4 vs plain and the host EC-FFT"):
+        check_x4(device, rng, report)
 
     wrappers = {"k1": PK.hash_batch, "k2": PK.permute, "k3": MK.segmented_scan,
-                "k4": PM.hash_batch_mxu, "k5": EXP.run, "k6": EXP.mxu_mul_once}
+                "k4": PM.hash_batch_mxu, "k5": EXP.run, "k6": EXP.mxu_mul_once, "x4": EK.ec_fft}
     launches = {}
     for w in wrappers.values():
         w.launches = 0
     digests, balances, host_root, circuit = criterion(device)
     entry16(device)
-    launches.update(k1=PK.hash_batch.launches, k3=MK.segmented_scan.launches)
-    log(f"proving-path launches: K1 {launches['k1']}, K3 {launches['k3']}")
+    ceremony_downsize(device)
+    full_width_downsize(device, rng, circuit)
+    northstar(device)
+    launches.update(k1=PK.hash_batch.launches, k3=MK.segmented_scan.launches,
+                    x4=EK.ec_fft.launches)
+    log(f"proving-path launches: K1 {launches['k1']}, K3 {launches['k3']}, X4 {launches['x4']}")
 
     for key in ("k2", "k4", "k5", "k6"):
         wrappers[key].launches = 0
@@ -619,7 +905,7 @@ def main() -> int:
     require(not idle, f"a kernel of its path never launched: {idle}")
 
     with Phase("kernel vs plain timings"):
-        times = timings(device, rng, card, probes)
+        times = timings(device, rng, card, probes, report)
     with Phase("repeat: time lost per kernel on its path"):
         lost_time(device, digests, balances, circuit, card)
     times["k1"], times["k4"] = times["k1_L2"], times["k4_L2"]

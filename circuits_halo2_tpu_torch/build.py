@@ -24,7 +24,7 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
-CUDA_SOURCES = ("poseidon.cu", "msm_scan.cu", "poseidon_mxu.cu")
+CUDA_SOURCES = ("poseidon.cu", "msm_scan.cu", "poseidon_mxu.cu", "ec_fft.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -107,10 +107,13 @@ def cuda_library() -> ctypes.CDLL:
             lib.poseidon_mxu_set_constants.argtypes = [vp, vp, vp]
             lib.poseidon_mxu_hash_batch_cuda.argtypes = [vp, vp, i32, i64, vp, vp]
             lib.poseidon_mxu_probe_cuda.argtypes = [i32, vp, vp, vp, i64, i32, vp]
+            lib.ec_fft_stage_cuda.argtypes = [vp, vp, i64, i64, i32, vp]
+            lib.ec_fft_scale_cuda.argtypes = [vp, vp, i64, i64, vp]
             for fn in (lib.poseidon_set_constants, lib.poseidon_hash_batch_cuda,
                        lib.poseidon_permute_cuda, lib.msm_scan_cuda,
                        lib.poseidon_mxu_set_constants, lib.poseidon_mxu_hash_batch_cuda,
-                       lib.poseidon_mxu_probe_cuda):
+                       lib.poseidon_mxu_probe_cuda, lib.ec_fft_stage_cuda,
+                       lib.ec_fft_scale_cuda):
                 fn.restype = ctypes.c_int
             _cuda = lib
     return _cuda

@@ -51,40 +51,10 @@
 //   the case tests read them, and every output is canonical.
 // - The block size follows the thread count so the blocks cover every SM.
 
-#include "bn254_fast.cuh"
+#include "g1_jacobian.cuh"
 
 using bn254::Fq;
-
-// dbl-2009-l (ops/msm.py::jac_double), a = 0 curve; canonical in and out.
-BN_HD void jac_double(uint32_t x3[8], uint32_t y3[8], uint32_t z3[8],
-                      const uint32_t x[8], const uint32_t y[8], const uint32_t z[8]) {
-    uint32_t a[8], b[8], c[8], xb[8], d[8], e[8], f[8], t[8], c8[8];
-    bnf::sqr<Fq>(a, x);
-    bnf::sqr<Fq>(b, y);
-    bnf::sqr<Fq>(c, b);
-    bnf::add<Fq>(xb, x, b);
-    bnf::sqr<Fq>(t, xb);
-    bnf::sub<Fq>(t, t, a);
-    bnf::sub<Fq>(d, t, c);
-    bnf::dbl<Fq>(d, d);
-    bnf::add<Fq>(e, a, a);
-    bnf::add<Fq>(e, e, a);
-    bnf::sqr<Fq>(f, e);
-    bnf::dbl<Fq>(t, d);
-    uint32_t xo[8], yo[8], zo[8];
-    bnf::sub<Fq>(xo, f, t);
-    bnf::dbl<Fq>(c8, c);
-    bnf::dbl<Fq>(c8, c8);
-    bnf::dbl<Fq>(c8, c8);
-    bnf::sub<Fq>(t, d, xo);
-    bnf::mul<Fq>(t, e, t);
-    bnf::sub<Fq>(yo, t, c8);
-    bnf::mul<Fq>(t, y, z);
-    bnf::dbl<Fq>(zo, t);
-    bnf::canon<Fq>(x3, xo);
-    bnf::canon<Fq>(y3, yo);
-    bnf::canon<Fq>(z3, zo);
-}
+using g1::jac_double;
 
 // madd-2007-bl (ops/msm.py::jac_madd): (x1, y1, z1) += affine (x2, y2),
 // `valid` false meaning Q is the point at infinity. In place; the

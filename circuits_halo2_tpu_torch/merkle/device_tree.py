@@ -132,6 +132,15 @@ def build_device_tree(hashed_usernames: np.ndarray, balances: np.ndarray, device
     return DeviceMst(level_hashes, level_balances, depth, ncur, user)
 
 
+def build_device_tree_sorted(usernames: np.ndarray, hashed_usernames: np.ndarray,
+                             balances: np.ndarray, device="cuda:0"):
+    """``build_device_tree`` of the entries ordered by username (a stable
+    host ``np.argsort``), so lookups can bisect. Returns (DeviceMst, order):
+    ``order[i]`` is the original index of the entry at sorted position i."""
+    order = np.argsort(np.asarray(usernames), kind="stable")
+    return build_device_tree(hashed_usernames[order], balances[order], device), order
+
+
 def tree_root_mxu(hashed_usernames: np.ndarray, balances: np.ndarray, device="cuda:0"):
     """(root_hash, [root_balances]) of the tree ``build_device_tree`` builds,
     level by level through K4: leaves hash (raw digest, balances), every

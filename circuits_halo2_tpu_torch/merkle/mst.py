@@ -12,6 +12,8 @@ hashes (proof checks, circuit witnesses) use the native host sponge.
 from __future__ import annotations
 
 import csv as _csv
+import random
+from bisect import bisect_left
 from dataclasses import dataclass
 
 import torch
@@ -21,6 +23,11 @@ from ..ops import field as F
 from ..ops import field_torch as FT
 from ..ops import poseidon
 from ..ops import poseidon_kernel as PK
+
+
+def big_intify_username(username: str) -> int:
+    """UTF-8 big-endian bytes -> integer."""
+    return int.from_bytes(username.encode("utf-8"), "big")
 
 
 def big_uint_to_fp(x: int) -> int:
@@ -59,6 +66,10 @@ class Entry:
     def compute_leaf(self) -> "Node":
         return Node.leaf(self.hashed_username, self.balances)
 
+    def recompute_leaf(self, updated_balances: list[int]) -> "Node":
+        self.balances = list(updated_balances)
+        return Node.leaf(self.hashed_username, self.balances)
+
     def __eq__(self, other):
         return (isinstance(other, Entry) and self.username == other.username
                 and self.balances == other.balances)
@@ -79,12 +90,22 @@ class Node:
         return cls.leaf_node_from_preimage(preimage)
 
     @classmethod
+    def middle(cls, left: "Node", right: "Node") -> "Node":
+        preimage = [(a + b) % F.FR_MOD for a, b in zip(left.balances, right.balances)] + [
+            left.hash, right.hash]
+        return cls.middle_node_from_preimage(preimage)
+
+    @classmethod
     def leaf_node_from_preimage(cls, preimage: list[int]) -> "Node":
         return cls(poseidon.hash_n(preimage), preimage[1:])
 
     @classmethod
     def middle_node_from_preimage(cls, preimage: list[int]) -> "Node":
         return cls(poseidon.hash_n(preimage), preimage[:-2])
+
+    @classmethod
+    def init_empty(cls, n_currencies: int) -> "Node":
+        return cls(0, [0] * n_currencies)
 
     def __eq__(self, other):
         return (isinstance(other, Node) and self.hash == other.hash
@@ -171,15 +192,19 @@ def build_merkle_tree_from_leaves(leaves: list[Node], depth: int, device):
 
 
 class MerkleSumTree:
-    """MST with CSV ingest, zero-entry padding and inclusion proofs."""
+    """MST with CSV ingest, zero-entry padding, inclusion proofs and leaf
+    updates. A sorted tree holds its entries ordered by username, so
+    ``index_of_username`` bisects."""
 
     def __init__(self, root: Node, nodes: list[list[Node]], depth: int,
-                 entries: list[Entry], cryptocurrencies: list[Cryptocurrency]):
+                 entries: list[Entry], cryptocurrencies: list[Cryptocurrency],
+                 is_sorted: bool = False):
         self.root = root
         self.nodes = nodes
         self.depth = depth
         self.entries = entries
         self.cryptocurrencies = cryptocurrencies
+        self.is_sorted = is_sorted
 
     @classmethod
     def from_csv(cls, path: str, device="cuda:0") -> "MerkleSumTree":
@@ -187,15 +212,26 @@ class MerkleSumTree:
         return cls.from_entries(entries, cryptos, device)
 
     @classmethod
-    def from_entries(cls, entries: list[Entry], cryptocurrencies,
-                     device="cuda:0") -> "MerkleSumTree":
+    def from_csv_sorted(cls, path: str, device="cuda:0") -> "MerkleSumTree":
+        cryptos, entries = parse_csv_to_entries(path)
+        entries.sort(key=lambda e: e.username)
+        return cls.from_entries(entries, cryptos, device, is_sorted=True)
+
+    @classmethod
+    def from_params(cls, root, nodes, depth, entries, cryptocurrencies,
+                    is_sorted) -> "MerkleSumTree":
+        return cls(root, nodes, depth, entries, cryptocurrencies, is_sorted)
+
+    @classmethod
+    def from_entries(cls, entries: list[Entry], cryptocurrencies, device="cuda:0",
+                     is_sorted: bool = False) -> "MerkleSumTree":
         n_currencies = len(entries[0].balances)
         depth = (len(entries) - 1).bit_length() if len(entries) > 1 else 0
         entries = entries + [Entry.zero_entry(n_currencies)
                              for _ in range((1 << depth) - len(entries))]
         leaves = build_leaves_from_entries(entries, device)
         root, nodes = build_merkle_tree_from_leaves(leaves, depth, device)
-        return cls(root, nodes, depth, entries, list(cryptocurrencies))
+        return cls(root, nodes, depth, entries, list(cryptocurrencies), is_sorted)
 
     def leaves(self) -> list[Node]:
         return self.nodes[0]
@@ -242,3 +278,64 @@ class MerkleSumTree:
             pair = [node.hash, sibling.hash] if bit == 0 else [sibling.hash, node.hash]
             node = Node.middle_node_from_preimage(sums + pair)
         return node.hash == proof.root.hash and node.balances == proof.root.balances
+
+    def update_leaf(self, username: str, new_balances: list[int]) -> Node:
+        """Set a user's balances and rehash the O(depth) path above the leaf
+        (native host sponge). Returns the new root."""
+        index = self.index_of_username(username)
+        self.nodes[0][index] = self.entries[index].recompute_leaf(new_balances)
+        for level in range(1, self.depth + 1):
+            index //= 2
+            self.nodes[level][index] = Node.middle(self.nodes[level - 1][2 * index],
+                                                   self.nodes[level - 1][2 * index + 1])
+        self.root = self.nodes[self.depth][0]
+        return self.root
+
+    def index_of_username(self, username: str) -> int:
+        """Position of ``username``: a bisection in a sorted tree, a scan
+        otherwise; KeyError when it is absent."""
+        if not self.is_sorted:
+            for i, e in enumerate(self.entries):
+                if e.username == username:
+                    return i
+            raise KeyError("Username not found")
+        i = bisect_left(self.entries, username, key=lambda e: e.username)
+        if i < len(self.entries) and self.entries[i].username == username:
+            return i
+        raise KeyError("Username not found")
+
+
+def synthetic_merkle_proof(levels: int, n_currencies: int, entry: Entry, seed: int = 0,
+                           max_balance: int = 1 << 40) -> MerkleProof:
+    """A consistent LEVELS-deep MerkleProof without building a 2^LEVELS tree.
+
+    The sibling nodes along the path are drawn bottom-up from
+    ``random.Random(seed)`` in the JAX package's order (sibling leaf, then per
+    level the sibling middle preimage above level 0 and the path bit), so both
+    packages build the same witness; every preimage hashes to the node the
+    path consumes. Balances stay below ``max_balance`` so the path sums fit
+    the N_BYTES range checks."""
+    rng = random.Random(seed)
+
+    def rand_fr() -> int:
+        return rng.getrandbits(253) % F.FR_MOD
+
+    def rand_bals() -> list[int]:
+        return [rng.randrange(max_balance) for _ in range(n_currencies)]
+
+    node = entry.compute_leaf()
+    sibling_leaf_preimage = [rand_fr()] + rand_bals()
+    sibling = Node.leaf_node_from_preimage(sibling_leaf_preimage)
+    middles: list[list[int]] = []
+    path: list[int] = []
+    for level in range(levels):
+        if level > 0:
+            pre = rand_bals() + [rand_fr(), rand_fr()]
+            sibling = Node.middle_node_from_preimage(pre)
+            middles.append(pre)
+        bit = rng.getrandbits(1)
+        sums = [(a + b) % F.FR_MOD for a, b in zip(node.balances, sibling.balances)]
+        pair = [node.hash, sibling.hash] if bit == 0 else [sibling.hash, node.hash]
+        node = Node.middle_node_from_preimage(sums + pair)
+        path.append(bit)
+    return MerkleProof(entry, node, sibling_leaf_preimage, middles, path)

@@ -38,15 +38,25 @@ class ProofSolidityCallData:
     public_inputs: list[str]   # 0x-prefixed U256 hex
 
 
+@dataclass
+class CommitmentSolidityCallData:
+    """The root commitment as EVM calldata."""
+
+    root_hash: str
+    root_balances: list[str]
+
+
 def generate_setup_artifacts(k: int, ptau_path: str | None, levels: int, n_currencies: int,
                              n_bytes: int, device) -> SetupArtifacts:
     """Load the SRS (or the cached unsafe deterministic setup when
-    ``ptau_path`` is None) and run keygen on ``device``."""
+    ``ptau_path`` is None), downsize it to 2^k points on ``device`` when the
+    file is larger, and run keygen on ``device``."""
     if ptau_path is not None:
         params = ParamsKZG.read(ptau_path)
         if params.k < k:
             raise ValueError("provided ptau is smaller than the requested k")
-        params = params.downsize(k)
+        if params.k > k:
+            params = params.downsize(k, device)
     else:
         params = setup_cached(k)
     _, cs, config, asn = compile_circuit(levels, n_currencies, n_bytes, k)

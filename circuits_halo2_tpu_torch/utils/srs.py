@@ -21,7 +21,9 @@ import os
 from .. import build, native
 from ..ops import curve as C
 from ..ops import field as F
+from ..ops import msm
 from ..ops import ntt as NTT
+from . import ec_fft
 
 DEFAULT_SEED = b"circuits-halo2-tpu-test-srs"
 
@@ -86,15 +88,39 @@ class ParamsKZG:
             C.G1_GEN, [scale * w % p * di % p for w, di in zip(omega_pows, denom_invs)])
         return cls(k, g, g_lagrange, C.G2_GEN, C.g2_mul(C.G2_GEN, s))
 
-    def downsize(self, k: int) -> "ParamsKZG":
+    def downsize(self, k: int, device="cuda:0") -> "ParamsKZG":
+        """Truncate to a smaller domain: the monomial bases truncate, and the
+        Lagrange bases of the smaller domain are the inverse EC-FFT of the
+        truncated monomial bases (``utils/ec_fft.g_to_lagrange`` on
+        ``device``)."""
         if k == self.k:
             return self
-        raise NotImplementedError("downsizing needs the EC-FFT, not ported yet")
+        if k > self.k:
+            raise ValueError("cannot upsize params")
+        g = self.g[: 1 << k]
+        return ParamsKZG(k, g, ec_fft.g_to_lagrange(g, k, device), self.g2, self.s_g2)
+
+    def commit_lagrange(self, evals: list[int], device="cuda:0"):
+        """Commit to a polynomial given by its evaluations on the 2^k domain."""
+        if len(evals) != self.n:
+            raise ValueError(f"commit_lagrange: {len(evals)} evaluations for n = {self.n}")
+        return msm.msm_auto(self.g_lagrange, evals, device)
+
+    def commit(self, coeffs: list[int], device="cuda:0"):
+        """Commit to a polynomial in coefficient form (degree < 2^k)."""
+        if len(coeffs) > self.n:
+            raise ValueError(f"commit: {len(coeffs)} coefficients for n = {self.n}")
+        return msm.msm_auto(self.g[: len(coeffs)], coeffs, device)
+
+
+def cached_path(k: int):
+    """Where ``setup_cached`` keeps ``ParamsKZG.setup(k)``."""
+    return build.build_dir() / f"srs-unsafe-k{k}.bin"
 
 
 def setup_cached(k: int) -> ParamsKZG:
     """``ParamsKZG.setup(k)``, read from the build directory when present."""
-    path = build.build_dir() / f"srs-unsafe-k{k}.bin"
+    path = cached_path(k)
     if path.exists():
         return ParamsKZG.read(str(path))
     params = ParamsKZG.setup(k)

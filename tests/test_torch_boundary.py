@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from circuits_halo2_tpu_torch.merkle.mst import MerkleSumTree
+from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
 from circuits_halo2_tpu_torch.ops import field_torch as FT
 from circuits_halo2_tpu_torch.ops import msm_kernel as MK
 from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
@@ -96,7 +97,13 @@ def test_name_check_catches_the_old_paths():
 
 
 def test_tree_entry_points_default_to_the_card():
-    for fn in (MerkleSumTree.from_csv, MerkleSumTree.from_entries):
+    from circuits_halo2_tpu_torch.merkle.device_tree import build_device_tree_sorted
+    from circuits_halo2_tpu_torch.utils import ec_fft as EC
+    from circuits_halo2_tpu_torch.utils.srs import ParamsKZG
+
+    for fn in (MerkleSumTree.from_csv, MerkleSumTree.from_entries, MerkleSumTree.from_csv_sorted,
+               build_device_tree_sorted, EC.ec_fft_device, EC.g_to_lagrange, ParamsKZG.downsize,
+               ParamsKZG.commit, ParamsKZG.commit_lagrange):
         assert inspect.signature(fn).parameters["device"].default == "cuda:0"
 
 
@@ -126,6 +133,7 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     monkeypatch.setattr(PM, "mul_ref", no_fallback)
     monkeypatch.setattr(MK, "segmented_scan_ref", no_fallback)
     monkeypatch.setattr(EXP, "run_ref", no_fallback)
+    monkeypatch.setattr(EK, "ec_fft_ref", no_fallback)
     with pytest.raises(RuntimeError):
         PK.hash_batch(_fake_cuda((3, 16, 128)))
     with pytest.raises(RuntimeError):
@@ -140,6 +148,9 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     flags = SimpleNamespace(shape=torch.Size((2, 64)))
     with pytest.raises(RuntimeError):
         MK.segmented_scan(pts, pts, flags, flags, 16)
+    coords = _fake_cuda((16, 2, 8))
+    with pytest.raises(RuntimeError):
+        EK.ec_fft(coords, coords, coords, _fake_cuda((16, 2, 7)), _fake_cuda((16, 2)))
 
 
 def test_wrappers_reject_other_devices():
@@ -152,6 +163,9 @@ def test_wrappers_reject_other_devices():
         PM.hash_batch_mxu(meta)
     with pytest.raises(ValueError):
         EXP.run("vpu_mul", meta[0], meta[1], 1)
+    coords = torch.empty((16, 1, 4), dtype=FT.DTYPE, device="meta")
+    with pytest.raises(ValueError):
+        EK.ec_fft(coords, coords, coords, torch.empty((16, 1, 3), dtype=FT.DTYPE, device="meta"))
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):

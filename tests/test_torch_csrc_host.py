@@ -1,18 +1,23 @@
 """The CUDA kernels' per-thread code, compiled for the host with g++.
 
-``csrc/bn254.cuh``, ``csrc/bn254_fast.cuh`` and the per-thread functions of
-``csrc/poseidon.cu``, ``csrc/msm_scan.cu`` and ``csrc/poseidon_mxu.cu`` also
-compile as plain C++ (``BN_HD``; the carry-chain primitives of
-``bn254_fast.cuh`` as C++ twins with an explicit carry flag); the
-``__global__`` launchers do not. A small harness runs the lazy field
-operations, the sponges, the bare permutation and the lane scan exactly
-as one CUDA thread would (K4's matrix product done by a plain loop in place
-of the tensor cores), K4's warp reduction through the kernel's own index
-functions for 32 lanes at once (a shuffle as an array read, ``mma`` by the
-PTX fragment definition), and the results are held to Python ints and to
-the plain torch versions. Exact. The launches themselves are checked on the card
+``csrc/bn254.cuh``, ``csrc/bn254_fast.cuh``, ``csrc/g1_jacobian.cuh`` and the
+per-thread functions of ``csrc/poseidon.cu``, ``csrc/msm_scan.cu``,
+``csrc/poseidon_mxu.cu`` and ``csrc/ec_fft.cu`` also compile as plain C++
+(``BN_HD``; the carry-chain primitives of ``bn254_fast.cuh`` as C++ twins
+with an explicit carry flag); the ``__global__`` launchers do not. A small
+harness runs the lazy field operations, the sponges, the bare permutation,
+the lane scan, X4's complete addition, double-and-add and butterflies
+exactly as one CUDA thread would (K4's matrix product done by a plain loop
+in place of the tensor cores), K4's warp reduction through the kernel's own
+index functions for 32 lanes at once (a shuffle as an array read, ``mma`` by
+the PTX fragment definition), and the results are held to Python ints and to
+the plain torch versions; X4's butterflies, driven thread by thread, also
+downsize the hermez-raw-11 ceremony file to the JAX package's bases. Exact. The launches themselves are checked on the card
 (``chip_smoke.py``, ``-m cuda`` tests)."""
 
+import hashlib
+import json
+import random
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,16 +29,21 @@ import torch
 from circuits_halo2_tpu.ops import curve as C
 from circuits_halo2_tpu.ops import field as F
 from circuits_halo2_tpu_torch import native
+from circuits_halo2_tpu_torch.ops import curve as TC
 from circuits_halo2_tpu_torch.ops import field_torch as FT
+from circuits_halo2_tpu_torch.ops import ntt as NTT
 from circuits_halo2_tpu_torch.ops import msm as TM
 from circuits_halo2_tpu_torch.ops import msm_kernel as MK
 from circuits_halo2_tpu_torch.ops import poseidon as PS
 from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
 from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
+from circuits_halo2_tpu_torch.utils import ec_fft as EC
+from circuits_halo2_tpu_torch.utils.srs import ParamsKZG
 
 torch.set_num_threads(2)
 
-CSRC = Path(__file__).resolve().parent.parent / "circuits_halo2_tpu_torch" / "csrc"
+TESTS = Path(__file__).resolve().parent
+CSRC = TESTS.parent / "circuits_halo2_tpu_torch" / "csrc"
 
 HARNESS = r"""
 #include <cstdio>
@@ -44,6 +54,7 @@ HARNESS = r"""
 #include "poseidon.cu"
 #include "msm_scan.cu"
 #include "poseidon_mxu.cu"
+#include "ec_fft.cu"
 
 template <class T> static std::vector<T> take(size_t n) {
     std::vector<T> v(n);
@@ -172,6 +183,26 @@ int main(int argc, char** argv) {
         }
         for (long i = 0; i < n; ++i) red.reduce(&out[8 * (n + i)], &t[16 * i]);
         fwrite(out.data(), 4, out.size(), stdout);
+    } else if (mode == "jac_add" || mode == "scalar_mul") {  // n cases of 6 x 8 words in, 3 x 8 out
+        auto in = take<uint32_t>((size_t)48 * n);
+        std::vector<uint32_t> out((size_t)24 * n);
+        for (long i = 0; i < n; ++i) {
+            const uint32_t* a = &in[48 * i];
+            uint32_t* o = &out[24 * i];
+            if (mode == "jac_add")
+                g1::jac_add(o, o + 8, o + 16, a, a + 8, a + 16, a + 24, a + 32, a + 40);
+            else  // the point, then the scalar k (words 24 .. 32)
+                g1::scalar_mul(o, o + 8, o + 16, a, a + 8, a + 16, a + 24);
+        }
+        fwrite(out.data(), 4, out.size(), stdout);
+    } else if (mode == "ec_fft") {  // L transforms of n points: state, twiddles, scales
+        auto st = take<uint32_t>((size_t)24 * L * n);
+        auto tw = take<uint32_t>((size_t)8 * L * (n - 1));
+        auto sc = take<uint32_t>((size_t)8 * L);
+        for (int s = 0; ((long)2 << s) <= n; ++s)
+            for (long t = 0; t < L * n / 2; ++t) ec_fft_butterfly(st.data(), tw.data(), n, L, s, t);
+        for (long q = 0; q < L * n; ++q) ec_fft_scale_point(st.data(), sc.data(), n, L, q);
+        fwrite(st.data(), 4, st.size(), stdout);
     } else if (mode == "canon") {  // n values V < 2^268 of 9 words -> V mod p, then the quotients
         auto v = take<uint32_t>((size_t)9 * n);
         std::vector<uint32_t> out((size_t)9 * n);
@@ -450,3 +481,123 @@ def test_scan_lanes_match_plain(harness, L, pattern):
     want = MK.segmented_scan_ref(px, py, pv, seg, L)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# X4 (csrc/g1_jacobian.cuh, csrc/ec_fft.cu)
+# ---------------------------------------------------------------------------
+
+Q = F.FQ_MOD
+
+
+def _jacobian(p, z):
+    """Affine p (or None) -> plain Jacobian ints with Z = z (Z = 0 for None,
+    its X and Y then arbitrary: drawn from z, so two infinities differ)."""
+    if p is None:
+        return (z, z * 7 % Q, 0)
+    return (p[0] * z * z % Q, p[1] * z * z * z % Q, z)
+
+
+def _mont_words(values) -> np.ndarray:
+    """Plain Fq ints -> (len, 8) Montgomery words."""
+    return _word_rows([(v << 256) % Q for v in values], 8)
+
+
+def _points_out(words: np.ndarray) -> list:
+    """(n, 24) Montgomery words of Jacobian points -> affine points."""
+    vals = _ints(words.reshape(-1, 8), 8)
+    r_inv = pow(1 << 256, -1, Q)
+    jac = [tuple(v * r_inv % Q for v in vals[3 * i : 3 * i + 3]) for i in range(len(vals) // 3)]
+    return [None if z == 0 else TC._jac_to_affine((x, y, z)) for x, y, z in jac]
+
+
+def _add_cases():
+    rng = random.Random(13)
+    pts = native.g1_fixed_base_muls(C.G1_GEN, [rng.randrange(1, F.FR_MOD) for _ in range(12)])
+    zs = [rng.randrange(1, Q) for _ in range(40)]
+    p, q = pts[0], pts[1]
+    neg_p = TC.g1_neg(p)
+    cases = [(p, None), (None, q), (None, None), (p, p), (p, neg_p), (neg_p, p), (p, q)]
+    cases += [(pts[i], pts[i + 1]) for i in range(2, 11)]
+    return [(_jacobian(a, zs[2 * i]), _jacobian(b, zs[2 * i + 1]))
+            for i, (a, b) in enumerate(cases)], cases
+
+
+def test_complete_add_thread_code(harness):
+    """g1::jac_add at P + inf, inf + Q, inf + inf, P + P and P + (-P) (each
+    side at its own Z), and random pairs: the affine sum equals ops/curve's
+    on Python ints, and the Jacobian words equal the plain torch
+    ``ops/msm.jac_add`` limb for limb."""
+    jac, cases = _add_cases()
+    rows = np.stack([_mont_words([*a, *b]).reshape(48) for a, b in jac])
+    out = _run(harness, "jac_add", 0, len(jac), rows.tobytes()).view(np.uint32).reshape(-1, 24)
+    want = [TC.g1_add(a, b) for a, b in cases]
+    assert _points_out(out) == want
+    assert want[2] is None and want[4] is None and want[3] == TC.g1_double(cases[3][0])
+    cols = [torch.as_tensor(FT.to_mont_limbs([c[i] for c in sum(jac, ())][s::2], FT.FQ))
+            for s in (0, 1) for i in range(3)]
+    got = FT.words_to_limbs(torch.as_tensor(out.astype(np.int64).reshape(-1, 3, 8)
+                                            .transpose(1, 2, 0).copy()), 1)
+    ref = TM.jac_add(tuple(cols[:3]), tuple(cols[3:]))
+    for c in range(3):
+        assert torch.equal(got[c], ref[c])
+
+
+def test_double_and_add_thread_code(harness):
+    """g1::scalar_mul by 0, 1, r - 1, 2^253 and random 254-bit scalars (some
+    above r), of points at Z != 1 and of infinity: k P as ops/curve."""
+    rng = random.Random(17)
+    r = F.FR_MOD
+    scalars = [0, 1, 2, r - 1, r, 1 << 253, (1 << 254) - 1]
+    scalars += [rng.getrandbits(254) for _ in range(9)]
+    pts = native.g1_fixed_base_muls(C.G1_GEN, [rng.randrange(1, r) for _ in scalars])
+    pts[5] = None
+    rows = [np.concatenate([_mont_words(_jacobian(p, rng.randrange(1, Q))).reshape(24),
+                            _word_rows([k], 8).reshape(8), np.zeros(16, np.uint32)])
+            for p, k in zip(pts, scalars)]
+    out = _run(harness, "scalar_mul", 0, len(rows), np.stack(rows).tobytes())
+    got = _points_out(out.view(np.uint32).reshape(-1, 24))
+    assert got == [None if p is None else TC.g1_mul(p, k % r) for p, k in zip(pts, scalars)]
+    assert got[0] is None and got[4] is None and got[3] == TC.g1_neg(pts[3])
+
+
+def _ec_fft_thread_code(exe, points, transforms):
+    """X4's butterflies and scale pass, thread by thread, on the inputs the
+    wrapper hands the kernel (``utils/ec_fft.transform_inputs``)."""
+    x, y, z, tw, scale = EC.transform_inputs(points, transforms, "cpu")
+    nb, n = x.shape[1], x.shape[2]
+    if scale is None:
+        scale = torch.as_tensor(FT.ints_to_limbs([1] * nb))
+    state = torch.stack([FT.limbs_to_words(c, 0) for c in (x, y, z)])
+    payload = b"".join(t.numpy().tobytes() for t in (
+        state, FT.limbs_to_words(tw, 0), FT.limbs_to_words(scale, 0)))
+    out = torch.as_tensor(_run(exe, "ec_fft", nb, n, payload).reshape(3, 8, nb, n))
+    return EC.jacobian_to_affine(*(FT.words_to_limbs(out[c], 0) for c in range(3)))
+
+
+def test_ec_fft_thread_code_matches_host(harness):
+    """Two transforms in one state (forward, and the n^-1-scaled inverse) of
+    16 points with an infinity lane, held to the host ``ec_fft``."""
+    rng = random.Random(19)
+    n = 16
+    points = native.g1_fixed_base_muls(C.G1_GEN, [rng.randrange(1, F.FR_MOD) for _ in range(n)])
+    points[7] = None
+    omega = NTT.omega_for_k(4)
+    omega_inv, n_inv = F.fr_inv(omega), F.fr_inv(n)
+    fwd, inv = _ec_fft_thread_code(harness, points, [(omega, 1), (omega_inv, n_inv)])
+    assert fwd == EC.ec_fft(points, omega)
+    assert inv == [None if p is None else TC.g1_mul(p, n_inv) for p in EC.ec_fft(points, omega_inv)]
+
+
+def test_ec_fft_thread_code_downsizes_the_ceremony_file(harness):
+    """hermez-raw-11 downsized to k = 10 by X4's per-thread code: the 1024
+    Lagrange bases hash to the JAX package's (tests/fixtures_torch_criterion.json,
+    scripts/make_torch_criterion_fixtures.py)."""
+    fix = json.loads((TESTS / "fixtures_torch_criterion.json").read_text())["downsize"]
+    params = ParamsKZG.read(str(TESTS / fix["ptau"]))
+    k = fix["k"]
+    omega_inv, n_inv = F.fr_inv(NTT.omega_for_k(k)), F.fr_inv(1 << k)
+    (lagrange,) = _ec_fft_thread_code(harness, params.g[: 1 << k], [(omega_inv, n_inv)])
+    raw = b"".join(TC.g1_to_raw_bytes(p) for p in lagrange)
+    assert len(lagrange) == fix["count"]
+    assert hashlib.sha256(raw).hexdigest() == fix["g_lagrange_sha256"]

@@ -1,7 +1,8 @@
-"""The CUDA kernels on the card: K1, K2, K3, K4 and the K5/K6 probes against
-their plain torch versions at ragged and main-path shapes, and the device
-tree and the Pippenger on the card against the same code on the CPU and the
-native host code. Exact (field elements; exact u32 for ``bcast``).
+"""The CUDA kernels on the card: K1, K2, K3, K4, the K5/K6 probes and X4 (the
+EC-FFT) against their plain torch versions at ragged and main-path shapes,
+the device tree and the Pippenger on the card against the same code on the
+CPU and the native host code, and X4's Lagrange bases against the analytic
+ones. Exact (field elements; exact u32 for ``bcast``).
 
 Every test is marked ``cuda`` and skips without a CUDA device (the kernels
 have no CPU mode). The file imports no JAX, so it runs where JAX is absent:
@@ -15,12 +16,16 @@ import torch
 
 from circuits_halo2_tpu_torch import native
 from circuits_halo2_tpu_torch.merkle import device_tree as TDT
+from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
+from circuits_halo2_tpu_torch.ops import field as F
 from circuits_halo2_tpu_torch.ops import field_torch as FT
 from circuits_halo2_tpu_torch.ops import msm as TM
 from circuits_halo2_tpu_torch.ops import msm_kernel as MK
 from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
 from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
 from circuits_halo2_tpu_torch.scripts import exp_poseidon_mxu as EXP
+from circuits_halo2_tpu_torch.utils import ec_fft as EC
+from circuits_halo2_tpu_torch.utils.srs import ParamsKZG
 
 torch.set_num_threads(2)
 
@@ -208,3 +213,25 @@ def test_tree_root_mxu_matches_device_tree(dev):
     balances = rng.integers(1 << 63, 1 << 64, size=(n, 2), dtype=np.uint64)
     assert TDT.tree_root_mxu(digests, balances, dev) == TDT.build_device_tree(
         digests, balances, dev).root()
+
+
+@pytest.mark.cuda
+def test_x4_matches_plain(dev):
+    """n = 2 with an infinity lane, forward and scaled inverse as a batch of
+    two: one stage launch and one scale launch, equal to the plain version."""
+    points = [None, native.g1_fixed_base_muls(G1_GEN, [12345])[0]]
+    args = EC.transform_inputs(points, [(FR_MOD - 1, 1), (FR_MOD - 1, F.fr_inv(2))], dev)
+    before = EK.ec_fft.launches
+    got = EK.ec_fft(*args)
+    assert EK.ec_fft.launches == before + 2
+    for g, w in zip(got, EK.ec_fft_ref(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 11])
+def test_x4_lagrange_bases_match_analytic(dev, k):
+    """``g_to_lagrange`` through X4 (2^k >= DEVICE_MIN) gives the setup's
+    analytic Lagrange bases."""
+    params = ParamsKZG.setup(k)
+    assert EC.g_to_lagrange(params.g, k, dev) == params.g_lagrange

@@ -2,7 +2,7 @@
 CSV fixtures (BASELINE.md:27-30) and per-level parity of the device tree with
 JAX ``build_device_tree(use_pallas=False)`` at depth 7, where Montgomery-
 resident balance sums would already have left the reference kernel's limb
-envelope. Tolerance: exact."""
+envelope, and of the sorted build. Tolerance: exact."""
 
 from pathlib import Path
 
@@ -76,6 +76,22 @@ def test_device_tree_proof_matches_jax(depth7):
     assert got.sibling_middle_node_hash_preimages == want.sibling_middle_node_hash_preimages
     assert got.path_indices == want.path_indices
     assert (got.root.hash, got.root.balances) == (want.root.hash, want.root.balances)
+
+
+def test_sorted_device_tree_matches_jax(depth7):
+    """``build_device_tree_sorted`` at depth 7 (usernames drawn as the
+    criterion bench draws them, one tie): the same order and root as the JAX
+    package's, the same root balances as the unsorted tree."""
+    digests, balances, jtree, tree = depth7
+    usernames = np.random.default_rng(8).integers(0, 256, size=(len(balances), 8),
+                                                  dtype=np.uint8).view("S8")[:, 0]
+    usernames[5] = usernames[90]
+    got, order = TDT.build_device_tree_sorted(usernames, digests, balances, "cpu")
+    jgot, jorder = JDT.build_device_tree_sorted(usernames, digests, balances, use_pallas=False)
+    assert np.array_equal(order, jorder)
+    assert list(usernames[order]) == sorted(usernames)
+    assert got.root() == jgot.root()
+    assert got.root()[1] == tree.root()[1] and got.root()[0] != tree.root()[0]
 
 
 def test_limb_conversions():
