@@ -4,9 +4,10 @@
 
 Builds the port's CUDA kernels from ``circuits_halo2_tpu_torch/csrc``,
 checks each of the seven (K1-K6 and X4, the EC-FFT) against its plain
-torch version on the card, then drives two paths through their user entry
-points, each with the launch counts set to 0 just before it and read just
-after:
+torch version on the card (X4 at 2^13 in a child process, beside the
+other checks), then drives four paths through their user
+entry points, each with the launch counts set to 0 just before it and read
+just after:
 
 - the proving path (K1, K3 and X4):
   - the reference criterion config (a 2^20-entry Merkle sum tree,
@@ -23,13 +24,23 @@ after:
   - the north-star config (2^16 entries, 2 currencies, N_BYTES=8,
     LEVELS=16, k=17): tree, keygen, a proof that verifies, and, where the
     fixture has them, the JAX package's north-star proofs byte for byte;
+- the batch prover (K3) on the criterion key: one prove traced phase by
+  phase, users 0-7 proved one at a time, then by ``prove_batch`` at U=4
+  and U=8 (each batch proof equal to the single proof byte for byte), and
+  users 0-1 with Blake2b at U=2; proofs per minute and peak memory;
+- the operator's round at the criterion width (K1, K3): a 2^20-entry
+  ``MerkleSumTree.from_entries`` (root equal to ``build_device_tree``'s),
+  ``Round`` on a k=13 SRS file, the ownership proofs, the commitment, two
+  users' inclusion proofs with the user-side checks, and the verifier
+  generated from the VK accepting both in the Yul VM;
 - the Poseidon engine at the criterion width: the 2^20 tree's root
   through the tensor-core sponge (K4) from raw digests and sums, equal to
   the host root; the bare permutation (K2) of the leaf states; and the
   probe experiment (K5, with the K6 exactness check).
 
-Prints one line per phase with its wall time, the kernels' JSON summary
-(times, launches, bounds), the card's name and power limit, and last
+Prints one line per phase with its wall time, each path's launch counts,
+the kernels' JSON summary (times, launches summed over the paths, bounds),
+the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and no ``ok`` line is printed. Needs CUDA; imports no JAX.
 """
@@ -52,6 +63,9 @@ SEED = 0
 CRITERION = (20, 1, 8, 13)  # LEVELS, N_CURRENCIES, N_BYTES, k (BASELINE.md:10)
 NORTHSTAR = (16, 2, 8, 17)  # the same for the north-star config (bench_suite.py:267-338)
 USER = "dxGaEAii"
+BATCH_USERS = 8  # users 0-7 of the criterion tree go through the batch prover
+BATCH_SIZES = (4, 8)  # users per prove_batch call
+ROUND_USERS = (0, 777_777)  # the two users of the operator's round
 CRITERION_FIXTURE = TESTS / "fixtures_torch_criterion.json"
 G1_GEN = (1, 2)  # the BN254 G1 generator, affine
 
@@ -316,18 +330,17 @@ def check_x4(device, rng, report):
     infinity lane, the forward transform and the n^-1-scaled inverse as one
     batch of two, both rows also against the host ``ec_fft``, and the user
     entry ``ec_fft_device`` (forward, scaled inverse) against the host too;
-    then at the two shapes the main path hands X4, each the scaled inverse
-    that ``downsize`` runs: hermez-raw-11's first 2^10 monomial points,
-    where kernel and plain version are timed (CUDA events; the plain
-    version one launch), and 2^13 points of a setup (the 2^17 -> 2^13
-    downsize)."""
+    then hermez-raw-11's first 2^10 monomial points, the scaled inverse
+    that its downsize runs, where kernel and plain version are timed (CUDA
+    events; the plain version one launch). The full-width shape is
+    ``x4_full_width``'s."""
     from circuits_halo2_tpu_torch import native
     from circuits_halo2_tpu_torch.ops import curve as C
     from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
     from circuits_halo2_tpu_torch.ops import field as F
     from circuits_halo2_tpu_torch.ops import ntt as NTT
     from circuits_halo2_tpu_torch.utils import ec_fft as EC
-    from circuits_halo2_tpu_torch.utils.srs import ParamsKZG, setup_cached
+    from circuits_halo2_tpu_torch.utils.srs import ParamsKZG
 
     n = 16
     points = native.g1_fixed_base_muls(G1_GEN, random_fr(rng, n))
@@ -367,15 +380,27 @@ def check_x4(device, rng, report):
         f"{report['x4'][0]:.3f} ms, plain torch {report['x4'][1]:.1f} ms, bound "
         f"{report['x4'][2]:.4f} ms ({report['x4'][3]})")
 
+    report["x4_err"] = err
+
+
+def x4_full_width(device) -> int:
+    """X4 against its plain version, limb for limb, at the other shape the
+    main path hands it: the scaled inverse of 2^13 points of a setup (the
+    2^17 -> 2^13 downsize). Returns the largest limb difference."""
+    from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
+    from circuits_halo2_tpu_torch.ops import field as F
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
+    from circuits_halo2_tpu_torch.utils import ec_fft as EC
+    from circuits_halo2_tpu_torch.utils.srs import setup_cached
+
     k = CRITERION[3]
     transforms = [(F.fr_inv(NTT.omega_for_k(k)), F.fr_inv(1 << k))]
     args = EC.transform_inputs(setup_cached(k).g, transforms, device)
     got, want = EK.ec_fft(*args), EK.ec_fft_ref(*args)
-    err = max(err, max_abs_err(got, want))
+    err = max_abs_err(got, want)
     require(err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)),
             "X4 differs from its plain version at the full-width downsize (n=2^13)")
-    report["x4_err"] = err
-    log("X4 n=2^13 (setup(13), scaled inverse): equal to plain torch")
+    return err
 
 
 def x4_bound(n: int, transforms) -> tuple[float, str]:
@@ -549,7 +574,192 @@ def criterion(device):
                 "sorted device root differs from the host root of the permuted leaves")
         log(f"sorted root {hex(sroot[0])} == host root of the permuted leaves, "
             f"balances {sroot[1]} == unsorted")
-    return digests, balances, host_root, circuit
+    entries = [entry0] + [tree_entry(digests, balances, i) for i in range(1, BATCH_USERS)]
+    return digests, balances, host_root, circuit, art, tree, entries
+
+
+def tree_entry(digests, balances, index: int):
+    """The host Entry of leaf ``index`` of a tree built from raw digests:
+    its username digest is the leaf's (there is no username behind it)."""
+    from circuits_halo2_tpu_torch.merkle.mst import Entry
+
+    entry = Entry.__new__(Entry)
+    entry.username = f"leaf{index}"
+    entry.balances = [int(b) for b in balances[index]]
+    entry.hashed_username = int.from_bytes(digests[index].tobytes(), "big")
+    return entry
+
+
+def batch_prover(device, art, tree, entries, card) -> None:
+    """Users 0-7 of the criterion tree (k=13): one traced prove, the eight
+    Keccak proofs one at a time with ``prove``, then with ``prove_batch`` at
+    U=4 (two calls) and U=8 (one call); every batch proof equals the
+    single proof byte for byte, and those verify. Then users 0 and 1 once
+    more with Blake2b, singly and at U=2. Every call is warm (the
+    criterion phase proved on the same key). Logs the proofs per minute
+    and each batch size's peak device memory."""
+    import contextlib
+    import io
+    import os
+
+    from circuits_halo2_tpu_torch.models.mst_inclusion import MstInclusionCircuit
+    from circuits_halo2_tpu_torch.models.prover import prove
+    from circuits_halo2_tpu_torch.models.prover_batch import prove_batch
+    from circuits_halo2_tpu_torch.models.verifier import verify
+    from circuits_halo2_tpu_torch.utils.transcript import Blake2bTranscript
+
+    levels, ncur, nbytes, _ = CRITERION
+    circuits = [MstInclusionCircuit.init(levels, ncur, nbytes, tree.generate_proof(i, e))
+                for i, e in enumerate(entries)]
+    instances = [c.instances() for c in circuits]
+    users = len(circuits)
+
+    def single(u, **kw):
+        return prove(art.params, art.pk, circuits[u], art.config, instances[u], device, **kw)
+
+    def batch(us, **kw):
+        return prove_batch(art.params, art.pk, [circuits[u] for u in us], art.config,
+                           [instances[u] for u in us], device=device, **kw)
+
+    with Phase(f"batch: one traced prove k={CRITERION[3]} (CIRCUITS_PROVE_TRACE=1)"):
+        err = io.StringIO()
+        os.environ["CIRCUITS_PROVE_TRACE"] = "1"
+        try:
+            with contextlib.redirect_stderr(err):
+                single(0)
+        finally:
+            del os.environ["CIRCUITS_PROVE_TRACE"]
+        for line in err.getvalue().splitlines():
+            log(f"  {line} ({card})")
+    per_minute = {}
+    with Phase(f"batch: {users} users one at a time with prove (Keccak)"):
+        t0 = time.perf_counter()
+        singles = [single(u) for u in range(users)]
+        torch.cuda.synchronize()
+        per_minute["sequential"] = users * 60 / (time.perf_counter() - t0)
+    with Phase(f"batch: the {users} single proofs verify"):
+        for u in range(users):
+            require(verify(art.params, art.vk, instances[u], singles[u]),
+                    f"single proof of user {u} does not verify")
+        bad = [list(instances[0][0])]
+        bad[0][2] += 1
+        require(not verify(art.params, art.vk, bad, singles[0]),
+                "a single proof verifies against a flipped instance")
+    for size in BATCH_SIZES:
+        with Phase(f"batch: prove_batch U={size}, {users // size} call(s) (Keccak)"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            proofs = [p for start in range(0, users, size)
+                      for p in batch(range(start, start + size))]
+            torch.cuda.synchronize()
+            per_minute[f"U={size}"] = users * 60 / (time.perf_counter() - t0)
+            for u in range(users):
+                require(proofs[u] == singles[u],
+                        f"U={size} batch proof of user {u} differs from its single proof: "
+                        + first_difference(proofs[u].hex(), singles[u].hex()))
+            log(f"U={size}: {users} batch proofs == the single proofs (which verify); peak "
+                f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+                f"{base} B held before the call ({card})")
+    with Phase("batch: users 0 and 1 with Blake2b, singly and at U=2"):
+        b_single = [single(u, transcript_cls=Blake2bTranscript) for u in (0, 1)]
+        b_batch = batch((0, 1), transcript_cls=Blake2bTranscript)
+        for u in (0, 1):
+            require(b_batch[u] == b_single[u], f"Blake2b U=2 proof of user {u} differs")
+            require(verify(art.params, art.vk, instances[u], b_batch[u],
+                           transcript_cls=Blake2bTranscript),
+                    f"Blake2b batch proof of user {u} does not verify")
+        log("Blake2b U=2: both batch proofs == the single proofs, verify")
+    log(f"batch k={CRITERION[3]} proofs per minute: "
+        + ", ".join(f"{key} {value:.3f}" for key, value in per_minute.items()) + f" ({card})")
+
+
+def operator_round(device, card) -> None:
+    """The operator's round at the criterion width: a 2^20-entry
+    ``MerkleSumTree.from_entries`` of seeded string usernames (its root
+    equal to ``build_device_tree``'s over the same leaves), ``Round`` on a
+    k=13 SRS file, the ownership proofs, the commitment, two users'
+    inclusion proofs with the user-side checks, and the verifier generated
+    from the VK accepting both in the Yul VM and rejecting a flipped byte."""
+    from circuits_halo2_tpu_torch import build
+    from circuits_halo2_tpu_torch.backend.address_ownership import AddressOwnership
+    from circuits_halo2_tpu_torch.backend.apis import leaf_hash_from_inputs
+    from circuits_halo2_tpu_torch.backend.round import Round
+    from circuits_halo2_tpu_torch.backend.signer import SummaSigner
+    from circuits_halo2_tpu_torch.contracts.sol_generator import SolidityGenerator
+    from circuits_halo2_tpu_torch.contracts.summa_sim import Cryptocurrency, SummaContractSim
+    from circuits_halo2_tpu_torch.contracts.yul_vm import estimate_code_size, run_verifier_gas
+    from circuits_halo2_tpu_torch.merkle.device_tree import build_device_tree
+    from circuits_halo2_tpu_torch.merkle.mst import Entry, MerkleSumTree
+    from circuits_halo2_tpu_torch.models.verifier import verify
+    from circuits_halo2_tpu_torch.utils.srs import setup_cached
+    from circuits_halo2_tpu_torch.utils.transcript import KeccakTranscript
+
+    levels, ncur, nbytes, k = CRITERION
+    n = 1 << levels
+    rng = np.random.default_rng(SEED)
+    names = (rng.integers(0, 26, size=(n, 10), dtype=np.uint8) + ord("a")).view("S10")[:, 0]
+    balances = rng.integers(0, 1 << 40, size=(n, ncur), dtype=np.uint64)
+    with Phase(f"round: 2^{levels} entries, MerkleSumTree.from_entries on the card (K1)"):
+        entries = [Entry(name.decode(), [int(b) for b in bal])
+                   for name, bal in zip(names, balances)]
+        mst = MerkleSumTree.from_entries(entries, [Cryptocurrency("ETH", "ETH")], device)
+    with Phase("round: the same leaves through build_device_tree"):
+        digests = np.frombuffer(b"".join(e.hashed_username.to_bytes(32, "big") for e in entries),
+                                dtype=np.uint8).reshape(n, 32)
+        root = build_device_tree(digests, balances, device).root()
+        require(root == (mst.root.hash, list(mst.root.balances)),
+                f"MerkleSumTree root {mst.root} != build_device_tree root {root}")
+        log(f"round tree root {hex(root[0])} balances {root[1]} == build_device_tree's")
+    srs = build.build_dir() / f"round-srs-{k}"  # Snapshot reads k from the name's suffix
+    setup_cached(k).write(str(srs))
+
+    box = {}
+
+    def onchain_verifier(proof, inputs):
+        art = box["artifacts"]
+        return verify(art.params, art.vk, [inputs], proof, transcript_cls=KeccakTranscript)
+
+    summa = SummaContractSim(onchain_verifier, levels, ncur, nbytes)
+    signer = SummaSigner("0x" + "11" * 32, summa, sender=summa.owner)
+    timestamp = 1
+    with Phase(f"round: Round (setup + keygen k={k}), ownership proofs, commitment"):
+        round_ = Round(signer, mst, str(srs), timestamp, levels, ncur, nbytes, device=device)
+        art = box["artifacts"] = round_.snapshot.trusted_setup
+        AddressOwnership(signer, str(TESTS / "fixtures_csv" / "signatures.csv")) \
+            .dispatch_proof_of_address_ownership()
+        round_.dispatch_commitment()
+        require(len(summa.address_ownership_proofs) == 2
+                and summa.commitments[timestamp].mst_root == mst.root.hash,
+                "the ownership proofs or the commitment did not land")
+    proofs = {}
+    for user in ROUND_USERS:
+        with Phase(f"round: get_proof_of_inclusion({user}) and the user-side checks"):
+            proof = round_.get_proof_of_inclusion(user)
+            inputs = [int(v, 16) for v in proof.public_inputs]
+            entry = mst.entries[user]
+            require(leaf_hash_from_inputs(entry.username, [str(b) for b in entry.balances])
+                    == inputs[0], f"user {user}: leaf hash mismatch")
+            require(summa.commitments[timestamp].mst_root == inputs[1],
+                    f"user {user}: root mismatch")
+            proofs[user] = (bytes.fromhex(proof.proof_calldata[2:]), inputs)
+            require(summa.verify_inclusion_proof(proofs[user][0], inputs, timestamp),
+                    f"user {user}: verifyInclusionProof failed")
+            log(f"user {user}: leaf hash, on-chain root and verifyInclusionProof pass")
+    with Phase("round: generated EVM verifier in the Yul VM"):
+        source = SolidityGenerator(art.params, art.vk, 2 + ncur).render()
+        for user, (proof, inputs) in proofs.items():
+            ok, gas = run_verifier_gas(source, proof, inputs)
+            require(ok, f"the generated verifier rejects user {user}'s proof")
+            log(f"user {user}: generated verifier accepts, run_verifier_gas {gas}")
+        proof, inputs = proofs[ROUND_USERS[0]]
+        bad = bytearray(proof)
+        bad[300] ^= 1
+        require(not run_verifier_gas(source, bytes(bad), inputs)[0],
+                "the generated verifier accepts a proof with a flipped byte")
+        log(f"flipped byte rejected; estimate_code_size {estimate_code_size(source)} B, "
+            f"source {len(source)} characters ({card})")
 
 
 def entry16(device):
@@ -844,7 +1054,13 @@ KERNELS = (  # key, name, source, replaced TPU kernel
 )
 
 
+X4_CHILD = "--x4-full-width"  # the argument main's child process runs with
+
+
 def main() -> int:
+    if sys.argv[1:] == [X4_CHILD]:
+        print(json.dumps({"x4_err": x4_full_width(torch.device("cuda", 0))}), flush=True)
+        return 0
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     device = torch.device("cuda", 0)
@@ -866,27 +1082,43 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    rng = np.random.default_rng(SEED)
-    report: dict = {}
-    with Phase("K1 vs plain"):
-        check_k1(device, rng, report)
-    with Phase("K3 vs plain"):
-        check_k3(device, rng, report)
-    with Phase("K2 vs plain"):
-        check_k2(device, rng, report)
-    with Phase("K4 vs plain and K1"):
-        check_k4(device, rng, report)
-    with Phase("K5, K6 vs plain"):
-        check_k5_k6(device, report)
-    with Phase("X4 vs plain and the host EC-FFT"):
-        check_x4(device, rng, report)
+    # X4's plain version at 2^13 is minutes of launch-bound torch: a child
+    # process runs that check while this one checks the other kernels
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), X4_CHILD],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        rng = np.random.default_rng(SEED)
+        report: dict = {}
+        with Phase("K1 vs plain"):
+            check_k1(device, rng, report)
+        with Phase("K3 vs plain"):
+            check_k3(device, rng, report)
+        with Phase("K2 vs plain"):
+            check_k2(device, rng, report)
+        with Phase("K4 vs plain and K1"):
+            check_k4(device, rng, report)
+        with Phase("K5, K6 vs plain"):
+            check_k5_k6(device, report)
+        with Phase("X4 vs plain and the host EC-FFT"):
+            check_x4(device, rng, report)
+        with Phase("X4 vs plain at n=2^13 (child process; waiting for it)"):
+            out = child.communicate(timeout=1200)[0].strip().splitlines()
+            for line in out:
+                log(f"  child: {line}")
+            require(child.returncode == 0 and out, "the X4 n=2^13 check failed in the child")
+            report["x4_err"] = max(report["x4_err"], json.loads(out[-1])["x4_err"])
+            log("X4 n=2^13 (setup(13), scaled inverse): equal to plain torch")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
 
     wrappers = {"k1": PK.hash_batch, "k2": PK.permute, "k3": MK.segmented_scan,
                 "k4": PM.hash_batch_mxu, "k5": EXP.run, "k6": EXP.mxu_mul_once, "x4": EK.ec_fft}
     launches = {}
     for w in wrappers.values():
         w.launches = 0
-    digests, balances, host_root, circuit = criterion(device)
+    digests, balances, host_root, circuit, art, tree, entries = criterion(device)
     entry16(device)
     ceremony_downsize(device)
     full_width_downsize(device, rng, circuit)
@@ -894,6 +1126,20 @@ def main() -> int:
     launches.update(k1=PK.hash_batch.launches, k3=MK.segmented_scan.launches,
                     x4=EK.ec_fft.launches)
     log(f"proving-path launches: K1 {launches['k1']}, K3 {launches['k3']}, X4 {launches['x4']}")
+
+    def counted(name, kernels, run):
+        """Drive one more path with every count set to 0; its kernels must launch."""
+        for w in wrappers.values():
+            w.launches = 0
+        run()
+        counts = {key: w.launches for key, w in wrappers.items()}
+        log(f"{name} launches: " + ", ".join(f"{key.upper()} {c}" for key, c in counts.items()))
+        require(all(counts[key] for key in kernels), f"{name}: a kernel of its path never launched")
+        for key in kernels:
+            launches[key] += counts[key]
+
+    counted("batch-prover", ("k3",), lambda: batch_prover(device, art, tree, entries, card))
+    counted("operator-round", ("k1", "k3"), lambda: operator_round(device, card))
 
     for key in ("k2", "k4", "k5", "k6"):
         wrappers[key].launches = 0

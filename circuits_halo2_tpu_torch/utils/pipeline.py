@@ -47,10 +47,11 @@ class CommitmentSolidityCallData:
 
 
 def generate_setup_artifacts(k: int, ptau_path: str | None, levels: int, n_currencies: int,
-                             n_bytes: int, device) -> SetupArtifacts:
+                             n_bytes: int, device="cuda:0") -> SetupArtifacts:
     """Load the SRS (or the cached unsafe deterministic setup when
     ``ptau_path`` is None), downsize it to 2^k points on ``device`` when the
-    file is larger, and run keygen on ``device``."""
+    file is larger, and run keygen on ``device`` (the card unless the caller
+    asks for the CPU)."""
     if ptau_path is not None:
         params = ParamsKZG.read(ptau_path)
         if params.k < k:

@@ -73,10 +73,10 @@ def batch_inv_dev(a: torch.Tensor) -> torch.Tensor:
 
 
 def _powers_dev(x: torch.Tensor, n: int) -> torch.Tensor:
-    """(16, 1) Montgomery x -> (16, n) powers [1, x, x^2, ...]."""
-    a = x.expand(FT.NLIMBS, n).clone()
-    one = _one_like(a[:, :1])
-    a[:, :1] = one
+    """(16, *batch, 1) Montgomery x -> (16, *batch, n) powers [1, x, x^2, ...]."""
+    a = x.expand(x.shape[:-1] + (n,)).clone()
+    one = _one_like(a[..., :1])
+    a[..., :1] = one
     return _shift_scan(a, FT.mont_mul, one, reverse=False)
 
 
@@ -103,12 +103,13 @@ def eval_coeffs_at(coeffs: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
 def _divide_linear_dev(coeffs: torch.Tensor, pw: torch.Tensor, ipw: torch.Tensor) -> torch.Tensor:
     """q = coeffs / (X - z), exact division, via the suffix-sum identity
     q_i = z^-(i+1) · sum_{j>i} c_j z^j. pw/ipw: (16, n) powers of z and
-    z^-1. Output has n lanes; lane n-1 is zero."""
+    z^-1 (or (16, *batch, n), one point per batch entry). Output has n
+    lanes; lane n-1 is zero."""
     t = FT.mont_mul(coeffs, pw)
     zero = torch.zeros_like(t[..., :1])
     suf = _shift_scan(t, FT.add_mod, zero, reverse=True)
     s = torch.cat([suf[..., 1:], zero], dim=-1)  # exclusive: sum_{j>i}
-    return FT.mont_mul(FT.mont_mul(s, ipw), ipw[:, 1:2])
+    return FT.mont_mul(FT.mont_mul(s, ipw), ipw[..., 1:2])
 
 
 def divide_linear_dev(coeffs: torch.Tensor, z: int) -> torch.Tensor:
@@ -150,7 +151,7 @@ class Domain:
         self._zh_inv = self.to_device(native.batch_inv(zh))
         self._omega_pows = None
         self._x_ext = None
-        self._consts: dict[int, torch.Tensor] = {}
+        self._consts: dict[tuple, torch.Tensor] = {}
 
     # -- conversions --------------------------------------------------------
 
@@ -186,12 +187,14 @@ class Domain:
             self._x_ext = FT.mont_mul(pw, self.const_dev(COSET_GEN))
         return self._x_ext
 
-    def const_dev(self, value: int) -> torch.Tensor:
-        """(16, 1) Montgomery constant on the domain's device (cached)."""
-        value %= P
-        t = self._consts.get(value)
+    def const_dev(self, value: int, ndim: int = 2) -> torch.Tensor:
+        """(16, 1, ..., 1) Montgomery constant of ``ndim`` axes on the
+        domain's device (cached)."""
+        key = (value % P, ndim)
+        t = self._consts.get(key)
         if t is None:
-            t = self._consts[value] = torch.as_tensor(FT.FR.const(value), device=self.device)
+            t = torch.as_tensor(FT.FR.const(key[0]), device=self.device)
+            t = self._consts[key] = t.reshape((FT.NLIMBS,) + (1,) * (ndim - 1))
         return t
 
     # -- transforms ---------------------------------------------------------

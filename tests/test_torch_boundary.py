@@ -107,6 +107,41 @@ def test_tree_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda:0"
 
 
+@pytest.mark.parametrize("name", ["gen_commitment", "gen_inclusion_proof",
+                                  "gen_inclusion_verifier", "summa_solvency_flow"])
+def test_examples_default_to_the_card(name, monkeypatch):
+    """Run with no flags, each example hands its first device entry point
+    (tree or setup) the card."""
+    import importlib
+
+    from circuits_halo2_tpu_torch.utils import pipeline
+
+    class Reached(Exception):
+        pass
+
+    def reached(*args, **kwargs):
+        raise Reached(kwargs.get("device", args[-1]))
+
+    monkeypatch.setattr(MerkleSumTree, "from_csv", staticmethod(reached))
+    monkeypatch.setattr(pipeline, "generate_setup_artifacts", reached)
+    example = importlib.import_module(f"circuits_halo2_tpu_torch.examples.{name}")
+    with pytest.raises(Reached) as got:
+        example.main([])
+    assert got.value.args == ("cuda:0",)
+
+
+def test_proving_and_round_entry_points_default_to_the_card():
+    from circuits_halo2_tpu_torch.backend.round import Round, Snapshot
+    from circuits_halo2_tpu_torch.models.prover import prove
+    from circuits_halo2_tpu_torch.models.prover_batch import prove_batch
+    from circuits_halo2_tpu_torch.utils import pipeline
+
+    for fn in (pipeline.generate_setup_artifacts, prove, prove_batch, Snapshot, Round):
+        assert inspect.signature(fn).parameters["device"].default == "cuda:0"
+    # the JAX package's five-argument calls (its round and examples) still bind
+    inspect.signature(pipeline.generate_setup_artifacts).bind(11, None, 4, 2, 8)
+
+
 def _fake_cuda(shape):
     """A stand-in for a CUDA tensor (this torch build cannot make one)."""
     return SimpleNamespace(shape=torch.Size(shape), dtype=FT.DTYPE,
