@@ -4,8 +4,8 @@
 
 Builds the port's CUDA kernels from ``circuits_halo2_tpu_torch/csrc``,
 checks each of the seven (K1-K6 and X4, the EC-FFT) against its plain
-torch version on the card (X4 at 2^13 in a child process, beside the
-other checks), then drives four paths through their user
+torch version on the card (X4 at the path's 2^10 and 2^13 in two child
+processes, beside the other checks), then drives five paths through their user
 entry points, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -25,14 +25,28 @@ just after:
     LEVELS=16, k=17): tree, keygen, a proof that verifies, and, where the
     fixture has them, the JAX package's north-star proofs byte for byte;
 - the batch prover (K3) on the criterion key: one prove traced phase by
-  phase, users 0-7 proved one at a time, then by ``prove_batch`` at U=4
-  and U=8 (each batch proof equal to the single proof byte for byte), and
-  users 0-1 with Blake2b at U=2; proofs per minute and peak memory;
+  phase, users 0-3 proved one at a time, then users 0-7 by
+  ``prove_batch`` at U=4 and U=8 (each batch proof equal byte for byte to
+  the single proof, or to the other batch size's), and users 0-1 with
+  Blake2b at U=2 (user 0 equal to the criterion proof); proofs per minute
+  and peak memory;
 - the operator's round at the criterion width (K1, K3): a 2^20-entry
   ``MerkleSumTree.from_entries`` (root equal to ``build_device_tree``'s),
   ``Round`` on a k=13 SRS file, the ownership proofs, the commitment, two
   users' inclusion proofs with the user-side checks, and the verifier
   generated from the VK accepting both in the Yul VM;
+- the incremental inclusion chain (K1, K3): at the reference example's
+  size (entry_16 rounds 1-3) the step chain at k=11 and the chained SNARK
+  at k=13 equal to the JAX package's bytes
+  (tests/fixtures_torch_incremental.json); at the criterion width three
+  seeded 2^20-entry round CSVs, ``prove_chain`` of user 777,777 (three
+  ``from_entries`` trees, three k=13 step proofs), both chain verifiers
+  with a flipped byte and a broken chaining rejected, and the final states
+  recomputed on the host; then the JAX package's synthetic criterion
+  rounds: three k=13 step proofs and the k=14 chained SNARK byte for byte;
+- the recursion example (``examples/nova_incremental_verifier``: the
+  circom-parity chain, the k=11 step chain on the card, NIFS folding and
+  Spartan compression) in a child process started after the kernel build;
 - the Poseidon engine at the criterion width: the 2^20 tree's root
   through the tensor-core sponge (K4) from raw digests and sums, equal to
   the host root; the bare permutation (K2) of the leaf states; and the
@@ -64,9 +78,15 @@ CRITERION = (20, 1, 8, 13)  # LEVELS, N_CURRENCIES, N_BYTES, k (BASELINE.md:10)
 NORTHSTAR = (16, 2, 8, 17)  # the same for the north-star config (bench_suite.py:267-338)
 USER = "dxGaEAii"
 BATCH_USERS = 8  # users 0-7 of the criterion tree go through the batch prover
+SINGLE_USERS = 4  # users 0-3 of them are also proved one at a time
 BATCH_SIZES = (4, 8)  # users per prove_batch call
 ROUND_USERS = (0, 777_777)  # the two users of the operator's round
 CRITERION_FIXTURE = TESTS / "fixtures_torch_criterion.json"
+INCREMENTAL_FIXTURE = TESTS / "fixtures_torch_incremental.json"
+CHAIN_ROUNDS = 3  # rounds of the criterion-width incremental chain
+CHAIN_USER = 777_777  # the user proved across them
+ROUND_BALANCE_CAP = 1 << 40  # per entry: a 2^20-leaf sum stays below 2^60
+EXAMPLE = "circuits_halo2_tpu_torch.examples.nova_incremental_verifier"
 G1_GEN = (1, 2)  # the BN254 G1 generator, affine
 
 # Peak rates of one H100 SXM at 700 W, for the bounds. Tensor cores and
@@ -329,18 +349,15 @@ def check_x4(device, rng, report):
     """X4 against its plain version, limb for limb: at n = 16 with an
     infinity lane, the forward transform and the n^-1-scaled inverse as one
     batch of two, both rows also against the host ``ec_fft``, and the user
-    entry ``ec_fft_device`` (forward, scaled inverse) against the host too;
-    then hermez-raw-11's first 2^10 monomial points, the scaled inverse
-    that its downsize runs, where kernel and plain version are timed (CUDA
-    events; the plain version one launch). The full-width shape is
-    ``x4_full_width``'s."""
+    entry ``ec_fft_device`` (forward, scaled inverse) against the host too.
+    The main path's shapes are ``x4_ceremony``'s and ``x4_full_width``'s,
+    each checked in a child process."""
     from circuits_halo2_tpu_torch import native
     from circuits_halo2_tpu_torch.ops import curve as C
     from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
     from circuits_halo2_tpu_torch.ops import field as F
     from circuits_halo2_tpu_torch.ops import ntt as NTT
     from circuits_halo2_tpu_torch.utils import ec_fft as EC
-    from circuits_halo2_tpu_torch.utils.srs import ParamsKZG
 
     n = 16
     points = native.g1_fixed_base_muls(G1_GEN, random_fr(rng, n))
@@ -360,6 +377,19 @@ def check_x4(device, rng, report):
             "ec_fft_device differs from the host ec_fft")
     log("X4 n=16 (forward and scaled inverse, infinity lane): equal to plain torch and to "
         "the host ec_fft")
+    report["x4_err"] = err
+
+
+def x4_ceremony(device) -> dict:
+    """X4 against its plain version, limb for limb, at hermez-raw-11's first
+    2^10 monomial points, the scaled inverse that its downsize runs, where
+    kernel and plain version are timed (CUDA events; the plain version one
+    launch). Returns the largest limb difference and the timings."""
+    from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
+    from circuits_halo2_tpu_torch.ops import field as F
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
+    from circuits_halo2_tpu_torch.utils import ec_fft as EC
+    from circuits_halo2_tpu_torch.utils.srs import ParamsKZG
 
     k = 10
     ceremony = ParamsKZG.read(str(TESTS / "fixtures_ptau_hermez-raw-11"))
@@ -371,16 +401,11 @@ def check_x4(device, rng, report):
     want = EK.ec_fft_ref(*args)
     end.record()
     torch.cuda.synchronize()
-    err = max(err, max_abs_err(got, want))
+    err = max_abs_err(got, want)
     require(err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)),
             "X4 differs from its plain version at the ceremony downsize (n=2^10)")
-    report["x4"] = [cuda_ms(lambda: EK.ec_fft(*args), 3), start.elapsed_time(end),
-                    *x4_bound(1 << k, transforms)]
-    log(f"X4 n=2^10 (hermez-raw-11, scaled inverse): equal to plain torch; kernel "
-        f"{report['x4'][0]:.3f} ms, plain torch {report['x4'][1]:.1f} ms, bound "
-        f"{report['x4'][2]:.4f} ms ({report['x4'][3]})")
-
-    report["x4_err"] = err
+    return {"x4_err": err, "x4": [cuda_ms(lambda: EK.ec_fft(*args), 3),
+                                  start.elapsed_time(end), *x4_bound(1 << k, transforms)]}
 
 
 def x4_full_width(device) -> int:
@@ -575,7 +600,7 @@ def criterion(device):
         log(f"sorted root {hex(sroot[0])} == host root of the permuted leaves, "
             f"balances {sroot[1]} == unsorted")
     entries = [entry0] + [tree_entry(digests, balances, i) for i in range(1, BATCH_USERS)]
-    return digests, balances, host_root, circuit, art, tree, entries
+    return digests, balances, host_root, circuit, art, tree, entries, proof
 
 
 def tree_entry(digests, balances, index: int):
@@ -590,14 +615,17 @@ def tree_entry(digests, balances, index: int):
     return entry
 
 
-def batch_prover(device, art, tree, entries, card) -> None:
-    """Users 0-7 of the criterion tree (k=13): one traced prove, the eight
-    Keccak proofs one at a time with ``prove``, then with ``prove_batch`` at
-    U=4 (two calls) and U=8 (one call); every batch proof equals the
-    single proof byte for byte, and those verify. Then users 0 and 1 once
-    more with Blake2b, singly and at U=2. Every call is warm (the
-    criterion phase proved on the same key). Logs the proofs per minute
-    and each batch size's peak device memory."""
+def batch_prover(device, art, tree, entries, blake2b_0: bytes, card) -> None:
+    """Users 0-7 of the criterion tree (k=13): one traced prove, users 0-3
+    proved one at a time with ``prove`` (Keccak), then users 0-7 with
+    ``prove_batch`` at U=4 (two calls) and U=8 (one call): every batch
+    proof of users 0-3 equals the single proof byte for byte, those of
+    users 4-7 equal between U=4 and U=8, and the single proofs verify.
+    Then users 0 and 1 with Blake2b at U=2: user 0's proof equals the
+    criterion phase's ``full_prover`` proof of the same witness
+    (``blake2b_0``), and both verify. Every call is warm (the criterion
+    phase proved on the same key). Logs the proofs per minute and each
+    batch size's peak device memory."""
     import contextlib
     import io
     import os
@@ -632,19 +660,20 @@ def batch_prover(device, art, tree, entries, card) -> None:
         for line in err.getvalue().splitlines():
             log(f"  {line} ({card})")
     per_minute = {}
-    with Phase(f"batch: {users} users one at a time with prove (Keccak)"):
+    with Phase(f"batch: users 0-{SINGLE_USERS - 1} one at a time with prove (Keccak)"):
         t0 = time.perf_counter()
-        singles = [single(u) for u in range(users)]
+        singles = [single(u) for u in range(SINGLE_USERS)]
         torch.cuda.synchronize()
-        per_minute["sequential"] = users * 60 / (time.perf_counter() - t0)
-    with Phase(f"batch: the {users} single proofs verify"):
-        for u in range(users):
+        per_minute["sequential"] = SINGLE_USERS * 60 / (time.perf_counter() - t0)
+    with Phase(f"batch: the {SINGLE_USERS} single proofs verify"):
+        for u in range(SINGLE_USERS):
             require(verify(art.params, art.vk, instances[u], singles[u]),
                     f"single proof of user {u} does not verify")
         bad = [list(instances[0][0])]
         bad[0][2] += 1
         require(not verify(art.params, art.vk, bad, singles[0]),
                 "a single proof verifies against a flipped instance")
+    first = None  # the first batch size's proofs, for users without a single proof
     for size in BATCH_SIZES:
         with Phase(f"batch: prove_batch U={size}, {users // size} call(s) (Keccak)"):
             torch.cuda.synchronize()
@@ -655,33 +684,49 @@ def batch_prover(device, art, tree, entries, card) -> None:
                       for p in batch(range(start, start + size))]
             torch.cuda.synchronize()
             per_minute[f"U={size}"] = users * 60 / (time.perf_counter() - t0)
+            want = singles + (first or proofs)[SINGLE_USERS:]
             for u in range(users):
-                require(proofs[u] == singles[u],
-                        f"U={size} batch proof of user {u} differs from its single proof: "
-                        + first_difference(proofs[u].hex(), singles[u].hex()))
-            log(f"U={size}: {users} batch proofs == the single proofs (which verify); peak "
+                require(proofs[u] == want[u],
+                        f"U={size} batch proof of user {u} differs from its "
+                        + ("single proof: " if u < SINGLE_USERS else "first batch proof: ")
+                        + first_difference(proofs[u].hex(), want[u].hex()))
+            first = first or proofs
+            log(f"U={size}: users 0-{SINGLE_USERS - 1} == the single proofs (which verify), "
+                f"users {SINGLE_USERS}-{users - 1} == U={BATCH_SIZES[0]}'s; peak "
                 f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
                 f"{base} B held before the call ({card})")
-    with Phase("batch: users 0 and 1 with Blake2b, singly and at U=2"):
-        b_single = [single(u, transcript_cls=Blake2bTranscript) for u in (0, 1)]
+    with Phase("batch: users 0 and 1 with Blake2b at U=2"):
         b_batch = batch((0, 1), transcript_cls=Blake2bTranscript)
+        require(b_batch[0] == blake2b_0,
+                "Blake2b U=2 proof of user 0 differs from the criterion phase's full_prover proof")
         for u in (0, 1):
-            require(b_batch[u] == b_single[u], f"Blake2b U=2 proof of user {u} differs")
             require(verify(art.params, art.vk, instances[u], b_batch[u],
                            transcript_cls=Blake2bTranscript),
                     f"Blake2b batch proof of user {u} does not verify")
-        log("Blake2b U=2: both batch proofs == the single proofs, verify")
+        log("Blake2b U=2: user 0 == the criterion full_prover proof; both verify")
     log(f"batch k={CRITERION[3]} proofs per minute: "
         + ", ".join(f"{key} {value:.3f}" for key, value in per_minute.items()) + f" ({card})")
 
 
-def operator_round(device, card) -> None:
+def round_accounts(n: int, ncur: int, rounds: int):
+    """``n`` seeded usernames (10 lowercase letters, as bytes) and
+    ``rounds`` draws of their balances below ``ROUND_BALANCE_CAP``, from one
+    generator: the operator's round takes the first draw, the incremental
+    chain all three."""
+    rng = np.random.default_rng(SEED)
+    names = (rng.integers(0, 26, size=(n, 10), dtype=np.uint8) + ord("a")).view("S10")[:, 0]
+    return names, [rng.integers(0, ROUND_BALANCE_CAP, size=(n, ncur), dtype=np.uint64)
+                   for _ in range(rounds)]
+
+
+def operator_round(device, card) -> np.ndarray:
     """The operator's round at the criterion width: a 2^20-entry
     ``MerkleSumTree.from_entries`` of seeded string usernames (its root
     equal to ``build_device_tree``'s over the same leaves), ``Round`` on a
     k=13 SRS file, the ownership proofs, the commitment, two users'
     inclusion proofs with the user-side checks, and the verifier generated
-    from the VK accepting both in the Yul VM and rejecting a flipped byte."""
+    from the VK accepting both in the Yul VM and rejecting a flipped byte.
+    Returns the usernames' keccak digests, (2^20, 32) bytes."""
     from circuits_halo2_tpu_torch import build
     from circuits_halo2_tpu_torch.backend.address_ownership import AddressOwnership
     from circuits_halo2_tpu_torch.backend.apis import leaf_hash_from_inputs
@@ -698,9 +743,7 @@ def operator_round(device, card) -> None:
 
     levels, ncur, nbytes, k = CRITERION
     n = 1 << levels
-    rng = np.random.default_rng(SEED)
-    names = (rng.integers(0, 26, size=(n, 10), dtype=np.uint8) + ord("a")).view("S10")[:, 0]
-    balances = rng.integers(0, 1 << 40, size=(n, ncur), dtype=np.uint64)
+    names, (balances,) = round_accounts(n, ncur, 1)
     with Phase(f"round: 2^{levels} entries, MerkleSumTree.from_entries on the card (K1)"):
         entries = [Entry(name.decode(), [int(b) for b in bal])
                    for name, bal in zip(names, balances)]
@@ -760,6 +803,237 @@ def operator_round(device, card) -> None:
                 "the generated verifier accepts a proof with a flipped byte")
         log(f"flipped byte rejected; estimate_code_size {estimate_code_size(source)} B, "
             f"source {len(source)} characters ({card})")
+    return digests
+
+
+def chain_checks(art, chain, name: str) -> None:
+    """Both chain verifiers accept ``chain`` and reject it with a flipped
+    byte in step 2's proof and with a broken chaining instance."""
+    import copy
+
+    from circuits_halo2_tpu_torch.models import incremental as INC
+
+    require(INC.verify_chain(art, chain), f"{name}: verify_chain rejects the chain")
+    require(INC.verify_chain_compressed(art, chain),
+            f"{name}: verify_chain_compressed rejects the chain")
+    flipped = copy.deepcopy(chain)
+    proof = bytearray(flipped.steps[1].proof)
+    proof[100] ^= 1
+    flipped.steps[1] = INC.IncrementalStep(bytes(proof), flipped.steps[1].instances)
+    broken = copy.deepcopy(chain)
+    broken.steps[1].instances[0][0] ^= 1
+    for what, bad in (("a flipped byte in step 2", flipped), ("a broken chaining", broken)):
+        require(not INC.verify_chain(art, bad), f"{name}: verify_chain accepts {what}")
+        require(not INC.verify_chain_compressed(art, bad),
+                f"{name}: verify_chain_compressed accepts {what}")
+    log(f"{name}: {len(chain.steps)} steps verify (per step and with one pairing); "
+        "a flipped byte in step 2 and a broken chaining are rejected by both")
+
+
+def _hex_rows(rows) -> list[list[str]]:
+    return [[hex(v) for v in col] for col in rows]
+
+
+def _require_hex(got: str, want: str, what: str) -> None:
+    require(got == want, f"{what} differs from the JAX package's: " + first_difference(got, want))
+
+
+def incremental_parity(device) -> None:
+    """The reference example's size (entry_16 rounds 1-3, LEVELS=4, two
+    currencies): the step chain at k=11 and the chained SNARK at k=13
+    equal the JAX package's bytes (fixtures (a) and (b))."""
+    from circuits_halo2_tpu_torch.models import incremental as INC
+    from circuits_halo2_tpu_torch.utils import pipeline
+
+    fix = json.loads(INCREMENTAL_FIXTURE.read_text())
+    steps, snark = fix["steps"], fix["snark"]
+    states = [str(TESTS / p) for p in steps["csvs"]]
+    shape = (steps["levels"], steps["n_currencies"], steps["n_bytes"])
+    with Phase("incremental entry_16: setup + keygen of the step circuit k=11"):
+        art = pipeline.generate_incremental_artifacts(steps["k"], str(TESTS / steps["ptau"]),
+                                                      *shape, device=device)
+        require([[hex(x), hex(y)] for x, y in art.vk.fixed_commitments] == steps["fixed_comms"]
+                and [[hex(x), hex(y)] for x, y in art.vk.permutation_commitments]
+                == steps["permutation_comms"],
+                "step-circuit VK commitments differ from the JAX package's")
+        log(f"{len(steps['fixed_comms'])} fixed + {len(steps['permutation_comms'])} permutation "
+            "commitments == JAX fixture")
+    with Phase("incremental entry_16: prove_chain, 3 rounds (trees K1, proofs K3)"):
+        chain = INC.prove_chain(art, states, steps["user_index"])
+        for i, (step, want) in enumerate(zip(chain.steps, steps["proofs"])):
+            _require_hex(step.proof.hex(), want, f"entry_16 step {i + 1} proof")
+        require([_hex_rows(s.instances) for s in chain.steps] == steps["instances"]
+                and [hex(v) for v in chain.user_states] == steps["user_states"]
+                and [hex(v) for v in chain.liab_states] == steps["liab_states"],
+                "entry_16 chain instances or states differ from the JAX package's")
+        log(f"3 step proofs of {len(chain.steps[0].proof)} B == JAX fixture")
+    with Phase("incremental entry_16: verify_chain, verify_chain_compressed, rejections"):
+        chain_checks(art, chain, "entry_16 chain")
+    with Phase("incremental entry_16: chained SNARK k=13 (setup + keygen, prove_chain_snark)"):
+        cart = pipeline.generate_chained_artifacts(snark["k"], None, *shape,
+                                                   nsteps=snark["nsteps"], device=device)
+        proof, inst = INC.prove_chain_snark(cart, states, snark["user_index"])
+        _require_hex(proof.hex(), snark["proof"], "entry_16 chained SNARK")
+        require(_hex_rows(inst) == snark["instances"], "chained SNARK instances differ")
+    with Phase("incremental entry_16: verify_chain_snark"):
+        roots = [int(v, 16) for v in snark["roots"]]
+        leaves = [int(v, 16) for v in snark["leaf_hashes"]]
+        require(INC.verify_chain_snark(cart, proof, inst, roots, leaves),
+                "verify_chain_snark rejects the chained SNARK")
+        require(not INC.verify_chain_snark(cart, proof, inst, roots[:2]),
+                "verify_chain_snark accepts a truncated root list")
+        log(f"chained SNARK {len(proof)} B == JAX fixture; verifies against the rounds' roots "
+            "and leaf hashes; a truncated root list is rejected")
+
+
+class Clocked:
+    """Adds the wall time (after a device sync) of every call of
+    ``owner.name`` to ``self.seconds`` while the block runs."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.seconds, self.calls = owner, name, 0.0, 0
+
+    def __enter__(self):
+        self.saved = vars(self.owner)[self.name]
+        fn = getattr(self.owner, self.name)
+
+        def clocked(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        setattr(self.owner, self.name, clocked)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.saved)
+        return False
+
+
+def incremental_criterion(device, card, digests: np.ndarray):
+    """The criterion width on real data: three seeded 2^20-entry rounds in
+    the ``username;balances`` format (the operator round's usernames,
+    balances redrawn per round), the step circuit at k=13 and
+    ``prove_chain`` for user 777,777 (three ``from_entries`` trees through
+    K1, three proofs through K3), both verifiers and their rejections, and
+    the final states recomputed on the host from each round's root
+    (``build_device_tree`` over the same leaves, with the usernames' digests
+    ``digests`` from the operator's round) and the user's leaf hash."""
+    from circuits_halo2_tpu_torch import build
+    from circuits_halo2_tpu_torch.merkle.device_tree import build_device_tree
+    from circuits_halo2_tpu_torch.merkle.mst import MerkleSumTree
+    from circuits_halo2_tpu_torch.models import incremental as INC
+    from circuits_halo2_tpu_torch.ops import poseidon
+    from circuits_halo2_tpu_torch.utils import pipeline
+
+    levels, ncur, nbytes, k = CRITERION
+    n = 1 << levels
+    require(n * (ROUND_BALANCE_CAP - 1) < 1 << (8 * nbytes),
+            "a round's balance sums would not fit N_BYTES")
+    with Phase(f"incremental criterion: write {CHAIN_ROUNDS} seeded 2^{levels}-entry round CSVs"):
+        names, rounds = round_accounts(n, ncur, CHAIN_ROUNDS)
+        users = names.astype(f"U{names.dtype.itemsize}").tolist()
+        csvs = []
+        for r, balances in enumerate(rounds, 1):
+            path = build.build_dir() / f"incremental-round-{r}.csv"
+            rows = (f"{u};{','.join(map(str, b))}" for u, b in zip(users, balances.tolist()))
+            path.write_text("username;balances\n" + "\n".join(rows) + "\n")
+            csvs.append(str(path))
+        log(f"rounds at {', '.join(csvs)}; balances below {ROUND_BALANCE_CAP} "
+            f"(calculate_max_root_balance({nbytes}, {levels}) = "
+            f"{pipeline.calculate_max_root_balance(nbytes, levels)})")
+    with Phase(f"incremental criterion: setup + keygen of the step circuit k={k}"):
+        art = pipeline.generate_incremental_artifacts(k, None, levels, ncur, nbytes, device=device)
+    with Phase(f"incremental criterion: prove_chain, {CHAIN_ROUNDS} rounds, user {CHAIN_USER}"):
+        with Clocked(MerkleSumTree, "from_entries") as trees, \
+                Clocked(pipeline, "full_prover") as proofs:
+            chain = INC.prove_chain(art, csvs, CHAIN_USER)
+        require(trees.calls == proofs.calls == CHAIN_ROUNDS, "prove_chain skipped a round")
+        log(f"{CHAIN_ROUNDS} from_entries trees of 2^{levels} entries {trees.seconds:.3f} s, "
+            f"{CHAIN_ROUNDS} step proofs k={k} {proofs.seconds:.3f} s: "
+            f"{CHAIN_ROUNDS * 60 / proofs.seconds:.3f} step proofs per minute ({card})")
+    with Phase("incremental criterion: verify_chain, verify_chain_compressed, rejections"):
+        chain_checks(art, chain, "criterion chain")
+    with Phase("incremental criterion: final states from the rounds' roots and leaf hashes"):
+        hashed_user = int.from_bytes(digests[CHAIN_USER].tobytes(), "big")
+        user_state = liab_state = 0
+        for balances in rounds:
+            root = build_device_tree(digests, balances, device).root()
+            leaf = poseidon.hash_n([hashed_user] + [int(b) for b in balances[CHAIN_USER]])
+            user_state = poseidon.hash_n([user_state, leaf])
+            liab_state = poseidon.hash_n([liab_state, root[0]])
+        require(user_state == chain.user_states[-1] and liab_state == chain.liab_states[-1],
+                "the chain's final states differ from the host's")
+        log(f"final states {hex(user_state)}, {hex(liab_state)} == the host's from "
+            f"{CHAIN_ROUNDS} roots (build_device_tree) and leaf hashes")
+    return art
+
+
+def incremental_byte_gate(device, art) -> None:
+    """The criterion width against fixture (c): three synthetic rounds
+    (``synthetic_merkle_proof(20, 1, ..., seed=s)``) chained from (0, 0),
+    their step proofs at k=13 (on ``art``, the criterion chain's key) and
+    the chained proof at k=14 equal to the JAX package's bytes; all verify,
+    the chained one against the rounds' roots and leaf hashes."""
+    from circuits_halo2_tpu_torch.merkle.mst import Entry, synthetic_merkle_proof
+    from circuits_halo2_tpu_torch.models import incremental as INC
+    from circuits_halo2_tpu_torch.ops import poseidon
+    from circuits_halo2_tpu_torch.utils import pipeline
+
+    fix = json.loads(INCREMENTAL_FIXTURE.read_text()).get("criterion")
+    if fix is None:
+        log("SKIPPED: the incremental criterion-width byte gate (the fixture has no part c)")
+        return
+    levels, ncur, nbytes = fix["levels"], fix["n_currencies"], fix["n_bytes"]
+    witnesses = [synthetic_merkle_proof(levels, ncur, Entry(fix["user"], fix["balances"]), seed=s)
+                 for s in fix["seeds"]]
+    require((levels, ncur, nbytes, fix["step_k"]) == CRITERION,
+            "fixture (c) is not at the criterion width")
+    with Phase(f"incremental byte gate: {len(witnesses)} step proofs k={fix['step_k']}"):
+        user_states, liab_states, steps = [0], [0], []
+        for i, mp in enumerate(witnesses):
+            circuit = INC.IncrementalMstInclusionCircuit.init_step(
+                levels, ncur, nbytes, mp, user_states[-1], liab_states[-1])
+            inst = circuit.instances()
+            require(_hex_rows(inst) == fix["step_instances"][i], f"step {i + 1} instances differ")
+            proof = pipeline.full_prover(art, circuit, inst)
+            _require_hex(proof.hex(), fix["step_proofs"][i], f"criterion step {i + 1} proof")
+            steps.append(INC.IncrementalStep(proof, inst))
+            user_states.append(inst[0][2])
+            liab_states.append(inst[0][3])
+        require(INC.verify_chain(art, INC.IncrementalChainProof(steps, user_states, liab_states)),
+                "the synthetic step chain does not verify")
+        log(f"{len(steps)} step proofs == JAX fixture; the chain verifies")
+    with Phase(f"incremental byte gate: chained SNARK k={fix['chain_k']} (setup + keygen, prove)"):
+        cart = pipeline.generate_chained_artifacts(fix["chain_k"], None, levels, ncur, nbytes,
+                                                   nsteps=len(witnesses), device=device)
+        circuit = INC.ChainedMstInclusionCircuit.init_chain(levels, ncur, nbytes, witnesses)
+        inst = circuit.instances()
+        require(_hex_rows(inst) == fix["chain_instances"], "chained instances differ")
+        proof = pipeline.full_prover(cart, circuit, inst)
+        _require_hex(proof.hex(), fix["chain_proof"], f"criterion chained SNARK k={fix['chain_k']}")
+    with Phase("incremental byte gate: verify_chain_snark"):
+        roots = [mp.root.hash for mp in witnesses]
+        leaves = [poseidon.hash_n([mp.entry.hashed_username] + mp.entry.balances)
+                  for mp in witnesses]
+        require([hex(v) for v in roots] == fix["roots"]
+                and [hex(v) for v in leaves] == fix["leaf_hashes"],
+                "synthetic roots or leaf hashes differ from the JAX package's")
+        require(INC.verify_chain_snark(cart, proof, inst, roots, leaves),
+                "verify_chain_snark rejects the criterion chained SNARK")
+        require(not INC.verify_chain_snark(cart, proof, inst, roots[:2]),
+                "verify_chain_snark accepts a truncated root list")
+        log(f"chained SNARK k={fix['chain_k']} {len(proof)} B == JAX fixture, verifies against "
+            "the synthetic roots and leaf hashes")
+
+
+def incremental(device, card, digests) -> None:
+    incremental_parity(device)
+    incremental_byte_gate(device, incremental_criterion(device, card, digests))
 
 
 def entry16(device):
@@ -899,7 +1173,7 @@ def timings(device, rng, card, probes, report):
     from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
     from circuits_halo2_tpu_torch.scripts import exp_poseidon_mxu as EXP
     from circuits_halo2_tpu_torch.utils import ec_fft as EC
-    from circuits_halo2_tpu_torch.utils.srs import setup_cached
+    from circuits_halo2_tpu_torch.utils.srs import ParamsKZG, setup_cached
 
     out = {}
     n = 1 << 20
@@ -970,9 +1244,16 @@ def timings(device, rng, card, probes, report):
     bound, by = x4_bound(n, transforms)
     log(f"X4 scaled inverse EC-FFT n=2^13 (14 launches): {ms:.3f} ms, bound {bound:.3f} ms "
         f"({by}) ({card})")
-    out["x4"] = report["x4"]
-    log(f"X4 scaled inverse EC-FFT n=2^10 (11 launches): {out['x4'][0]:.3f} ms, plain torch "
-        f"{out['x4'][1]:.1f} ms, bound {out['x4'][2]:.4f} ms ({card})")
+    # the 2^10 kernel again here, on a quiet card (its child timed it beside
+    # the other checks); the plain time is the child's
+    n = 1 << 10
+    transforms = [(F.fr_inv(NTT.omega_for_k(10)), F.fr_inv(n))]
+    ceremony = ParamsKZG.read(str(TESTS / "fixtures_ptau_hermez-raw-11"))
+    args = EC.transform_inputs(ceremony.g[:n], transforms, device)
+    out["x4"] = [cuda_ms(lambda: EK.ec_fft(*args), 3), *report["x4"][1:]]
+    log(f"X4 scaled inverse EC-FFT n=2^10 (11 launches): {out['x4'][0]:.3f} ms "
+        f"({report['x4'][0]:.3f} beside the other checks), plain torch {out['x4'][1]:.1f} ms, "
+        f"bound {out['x4'][2]:.4f} ms ({card})")
     return out
 
 
@@ -1054,15 +1335,39 @@ KERNELS = (  # key, name, source, replaced TPU kernel
 )
 
 
-X4_CHILD = "--x4-full-width"  # the argument main's child process runs with
+X4_CHILDREN = {  # argument of a child process: its X4 check
+    "--x4-ceremony": x4_ceremony,
+    "--x4-full-width": lambda device: {"x4_err": x4_full_width(device)},
+}
 
 
 def main() -> int:
-    if sys.argv[1:] == [X4_CHILD]:
-        print(json.dumps({"x4_err": x4_full_width(torch.device("cuda", 0))}), flush=True)
+    """The run, with every child process it starts stopped when it ends."""
+    if len(sys.argv) == 2 and sys.argv[1] in X4_CHILDREN:
+        print(json.dumps(X4_CHILDREN[sys.argv[1]](torch.device("cuda", 0))), flush=True)
         return 0
+    children: list[subprocess.Popen] = []
+
+    def spawn(args: list[str]) -> subprocess.Popen:
+        children.append(subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+        return children[-1]
+
+    try:
+        return run(spawn)
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run(spawn) -> int:
+    """The smoke run; ``spawn`` starts a child process, which ``main`` stops
+    at the end."""
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"device: {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
@@ -1082,43 +1387,51 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    # X4's plain version at 2^13 is minutes of launch-bound torch: a child
-    # process runs that check while this one checks the other kernels
-    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), X4_CHILD],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    try:
-        rng = np.random.default_rng(SEED)
-        report: dict = {}
-        with Phase("K1 vs plain"):
-            check_k1(device, rng, report)
-        with Phase("K3 vs plain"):
-            check_k3(device, rng, report)
-        with Phase("K2 vs plain"):
-            check_k2(device, rng, report)
-        with Phase("K4 vs plain and K1"):
-            check_k4(device, rng, report)
-        with Phase("K5, K6 vs plain"):
-            check_k5_k6(device, report)
-        with Phase("X4 vs plain and the host EC-FFT"):
-            check_x4(device, rng, report)
-        with Phase("X4 vs plain at n=2^13 (child process; waiting for it)"):
-            out = child.communicate(timeout=1200)[0].strip().splitlines()
+    # the recursion example (its k=11 chain on the card, NIFS and Spartan on
+    # the host) runs beside everything else and is joined after the
+    # incremental path
+    example_t0 = time.perf_counter()
+    example = spawn([sys.executable, "-m", EXAMPLE,
+                     "--out", str(build.build_dir() / "example_out")])
+    # X4's plain version is minutes of launch-bound torch at each of the
+    # main path's shapes: a child process checks each while this one checks
+    # the other kernels
+    x4_children = {arg: spawn([sys.executable, str(Path(__file__).resolve()), arg])
+                   for arg in X4_CHILDREN}
+    rng = np.random.default_rng(SEED)
+    report: dict = {}
+    with Phase("K1 vs plain"):
+        check_k1(device, rng, report)
+    with Phase("K3 vs plain"):
+        check_k3(device, rng, report)
+    with Phase("K2 vs plain"):
+        check_k2(device, rng, report)
+    with Phase("K4 vs plain and K1"):
+        check_k4(device, rng, report)
+    with Phase("K5, K6 vs plain"):
+        check_k5_k6(device, report)
+    with Phase("X4 vs plain and the host EC-FFT"):
+        check_x4(device, rng, report)
+    with Phase("X4 vs plain at n=2^10 and 2^13 (child processes; waiting for them)"):
+        for arg, proc in x4_children.items():
+            out = proc.communicate(timeout=1200)[0].strip().splitlines()
             for line in out:
-                log(f"  child: {line}")
-            require(child.returncode == 0 and out, "the X4 n=2^13 check failed in the child")
-            report["x4_err"] = max(report["x4_err"], json.loads(out[-1])["x4_err"])
-            log("X4 n=2^13 (setup(13), scaled inverse): equal to plain torch")
-    finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
+                log(f"  {arg}: {line}")
+            require(proc.returncode == 0 and out, f"the X4 check {arg} failed in its child")
+            got = json.loads(out[-1])
+            report["x4_err"] = max(report["x4_err"], got["x4_err"])
+            report.update({key: got[key] for key in ("x4",) if key in got})
+        log("X4 n=2^10 (hermez-raw-11, scaled inverse) and n=2^13 (setup(13), scaled "
+            f"inverse): equal to plain torch; at 2^10 kernel {report['x4'][0]:.3f} ms, "
+            f"plain torch {report['x4'][1]:.1f} ms, bound {report['x4'][2]:.4f} ms "
+            f"({report['x4'][3]})")
 
     wrappers = {"k1": PK.hash_batch, "k2": PK.permute, "k3": MK.segmented_scan,
                 "k4": PM.hash_batch_mxu, "k5": EXP.run, "k6": EXP.mxu_mul_once, "x4": EK.ec_fft}
     launches = {}
     for w in wrappers.values():
         w.launches = 0
-    digests, balances, host_root, circuit, art, tree, entries = criterion(device)
+    digests, balances, host_root, circuit, art, tree, entries, blake2b_0 = criterion(device)
     entry16(device)
     ceremony_downsize(device)
     full_width_downsize(device, rng, circuit)
@@ -1138,8 +1451,19 @@ def main() -> int:
         for key in kernels:
             launches[key] += counts[key]
 
-    counted("batch-prover", ("k3",), lambda: batch_prover(device, art, tree, entries, card))
-    counted("operator-round", ("k1", "k3"), lambda: operator_round(device, card))
+    counted("batch-prover", ("k3",),
+            lambda: batch_prover(device, art, tree, entries, blake2b_0, card))
+    round_digests = []  # the round's username digests, which the incremental path reuses
+    counted("operator-round", ("k1", "k3"),
+            lambda: round_digests.append(operator_round(device, card)))
+    counted("incremental", ("k1", "k3"), lambda: incremental(device, card, round_digests[0]))
+    with Phase(f"example {EXAMPLE} (child process; waiting for it)"):
+        out = example.communicate(timeout=900)[0].strip().splitlines()
+        for line in out:
+            log(f"  example: {line}")
+        require(example.returncode == 0, f"the example exited with {example.returncode}")
+        log(f"example exited 0; joined {time.perf_counter() - example_t0:.1f} s after it was "
+            f"started ({card})")
 
     for key in ("k2", "k4", "k5", "k6"):
         wrappers[key].launches = 0
@@ -1164,6 +1488,7 @@ def main() -> int:
          "bound_by": times[key][3], "library_ms": None}
         for key, name, src, tpu in KERNELS
     ]}
+    log(f"whole script {time.perf_counter() - t_start:.1f} s ({card})")
     log(json.dumps(summary))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

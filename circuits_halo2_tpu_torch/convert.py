@@ -11,6 +11,8 @@ import numpy as np
 import torch
 
 from .merkle.device_tree import DeviceMst
+from .models import incremental as INC
+from .models import nova_fold as NF
 from .models.cs import ConstraintSystem
 from .models.keygen import ProvingKey, VerifyingKey
 from .ops import field as F
@@ -58,7 +60,8 @@ def device_mst_from_jax(tree, device) -> DeviceMst:
 def proving_key_from_jax(pk, cs: ConstraintSystem) -> ProvingKey:
     """The JAX ``ProvingKey`` (and its ``VerifyingKey``) as the port's. Both
     hold host ints, which are copied; ``cs`` is the port's own constraint
-    system of the same circuit (from the port's ``compile_circuit``), so the
+    system of the same circuit (from the port's ``compile_circuit``,
+    ``compile_incremental_circuit`` or ``compile_chained_circuit``), so the
     key shares no object with the JAX package."""
     jvk = pk.vk
     vk = VerifyingKey(
@@ -68,3 +71,34 @@ def proving_key_from_jax(pk, cs: ConstraintSystem) -> ProvingKey:
     )
     return ProvingKey(vk, [list(c) for c in pk.fixed_polys], [list(c) for c in pk.sigma_polys],
                       list(pk.l0), list(pk.l_last), list(pk.l_active_row))
+
+
+def _point(p):
+    return None if p is None else (int(p[0]), int(p[1]))
+
+
+def _instances(instances) -> list[list[int]]:
+    return [[int(v) for v in col] for col in instances]
+
+
+def incremental_chain_from_jax(chain) -> INC.IncrementalChainProof:
+    """The JAX ``IncrementalChainProof`` (its ``IncrementalStep``s) as the
+    port's."""
+    steps = [INC.IncrementalStep(bytes(s.proof), _instances(s.instances)) for s in chain.steps]
+    return INC.IncrementalChainProof(steps, [int(v) for v in chain.user_states],
+                                     [int(v) for v in chain.liab_states])
+
+
+def relaxed_instance_from_jax(inst) -> NF.RelaxedInstance:
+    return NF.RelaxedInstance(_point(inst.com_w), _point(inst.com_e), int(inst.u),
+                              [int(v) for v in inst.x])
+
+
+def relaxed_witness_from_jax(wit) -> NF.RelaxedWitness:
+    return NF.RelaxedWitness([int(v) for v in wit.w], [int(v) for v in wit.e])
+
+
+def nifs_steps_from_jax(steps) -> list:
+    """The JAX ``fold_chain``'s step records, ``(RelaxedInstance, com_T)``
+    pairs, as the port's."""
+    return [(relaxed_instance_from_jax(inst), _point(com_t)) for inst, com_t in steps]

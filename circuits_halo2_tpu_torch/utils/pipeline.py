@@ -10,6 +10,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..models.incremental import compile_chained_circuit, compile_incremental_circuit
 from ..models.keygen import ProvingKey, VerifyingKey, keygen
 from ..models.mst_inclusion import MstInclusionCircuit, compile_circuit
 from ..models.prover import BlindingRng, prove
@@ -46,24 +47,51 @@ class CommitmentSolidityCallData:
     root_balances: list[str]
 
 
+def _setup(k: int, ptau_path: str | None, compiled, shape: tuple, device) -> SetupArtifacts:
+    """The SRS file at ``ptau_path`` downsized to 2^k points on ``device``
+    when it is larger (the cached unsafe deterministic setup when
+    ``ptau_path`` is None), and keygen on ``device`` of a compiled circuit
+    ``(circuit, cs, config, asn)``."""
+    if ptau_path is None:
+        params = setup_cached(k)
+    else:
+        params = ParamsKZG.read(ptau_path)
+        if params.k < k:
+            raise ValueError("provided ptau is smaller than the requested k")
+        if params.k > k:
+            params = params.downsize(k, device)
+    _, cs, config, asn = compiled
+    vk, pk = keygen(params, cs, asn, device)
+    return SetupArtifacts(params, pk, vk, cs, config, shape, torch.device(device))
+
+
 def generate_setup_artifacts(k: int, ptau_path: str | None, levels: int, n_currencies: int,
                              n_bytes: int, device="cuda:0") -> SetupArtifacts:
     """Load the SRS (or the cached unsafe deterministic setup when
     ``ptau_path`` is None), downsize it to 2^k points on ``device`` when the
     file is larger, and run keygen on ``device`` (the card unless the caller
     asks for the CPU)."""
-    if ptau_path is not None:
-        params = ParamsKZG.read(ptau_path)
-        if params.k < k:
-            raise ValueError("provided ptau is smaller than the requested k")
-        if params.k > k:
-            params = params.downsize(k, device)
-    else:
-        params = setup_cached(k)
-    _, cs, config, asn = compile_circuit(levels, n_currencies, n_bytes, k)
-    vk, pk = keygen(params, cs, asn, device)
-    return SetupArtifacts(params, pk, vk, cs, config, (levels, n_currencies, n_bytes),
-                          torch.device(device))
+    return _setup(k, ptau_path, compile_circuit(levels, n_currencies, n_bytes, k),
+                  (levels, n_currencies, n_bytes), device)
+
+
+def generate_incremental_artifacts(k: int, ptau_path: str | None, levels: int,
+                                   n_currencies: int, n_bytes: int,
+                                   device="cuda:0") -> SetupArtifacts:
+    """Setup and keygen of the incremental step circuit
+    (``models/incremental.IncrementalMstInclusionCircuit``), with the SRS
+    handling of ``generate_setup_artifacts``."""
+    return _setup(k, ptau_path, compile_incremental_circuit(levels, n_currencies, n_bytes, k),
+                  (levels, n_currencies, n_bytes), device)
+
+
+def generate_chained_artifacts(k: int, ptau_path: str | None, levels: int, n_currencies: int,
+                               n_bytes: int, nsteps: int, device="cuda:0") -> SetupArtifacts:
+    """Setup and keygen of the N-step chained circuit
+    (``models/incremental.ChainedMstInclusionCircuit``)."""
+    return _setup(k, ptau_path,
+                  compile_chained_circuit(levels, n_currencies, n_bytes, nsteps, k),
+                  (levels, n_currencies, n_bytes), device)
 
 
 def full_prover(artifacts: SetupArtifacts, circuit: MstInclusionCircuit,

@@ -108,7 +108,8 @@ def test_tree_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("name", ["gen_commitment", "gen_inclusion_proof",
-                                  "gen_inclusion_verifier", "summa_solvency_flow"])
+                                  "gen_inclusion_verifier", "summa_solvency_flow",
+                                  "nova_incremental_verifier"])
 def test_examples_default_to_the_card(name, monkeypatch):
     """Run with no flags, each example hands its first device entry point
     (tree or setup) the card."""
@@ -124,6 +125,7 @@ def test_examples_default_to_the_card(name, monkeypatch):
 
     monkeypatch.setattr(MerkleSumTree, "from_csv", staticmethod(reached))
     monkeypatch.setattr(pipeline, "generate_setup_artifacts", reached)
+    monkeypatch.setattr(pipeline, "generate_incremental_artifacts", reached)
     example = importlib.import_module(f"circuits_halo2_tpu_torch.examples.{name}")
     with pytest.raises(Reached) as got:
         example.main([])
@@ -136,10 +138,33 @@ def test_proving_and_round_entry_points_default_to_the_card():
     from circuits_halo2_tpu_torch.models.prover_batch import prove_batch
     from circuits_halo2_tpu_torch.utils import pipeline
 
-    for fn in (pipeline.generate_setup_artifacts, prove, prove_batch, Snapshot, Round):
+    for fn in (pipeline.generate_setup_artifacts, pipeline.generate_incremental_artifacts,
+               pipeline.generate_chained_artifacts, prove, prove_batch, Snapshot, Round):
         assert inspect.signature(fn).parameters["device"].default == "cuda:0"
-    # the JAX package's five-argument calls (its round and examples) still bind
+    # the JAX package's positional calls (its round and examples) still bind
     inspect.signature(pipeline.generate_setup_artifacts).bind(11, None, 4, 2, 8)
+    inspect.signature(pipeline.generate_incremental_artifacts).bind(11, None, 4, 2, 8)
+    inspect.signature(pipeline.generate_chained_artifacts).bind(13, None, 4, 2, 8, 3)
+
+
+def test_incremental_rounds_build_on_the_artifacts_device(monkeypatch):
+    """``prove_chain`` and ``prove_chain_snark`` build every round's tree
+    on the device the artifacts were made for."""
+    from circuits_halo2_tpu_torch.models import incremental as INC
+
+    class Reached(Exception):
+        pass
+
+    def reached(entries, cryptos, device):
+        raise Reached(device)
+
+    monkeypatch.setattr(MerkleSumTree, "from_entries", staticmethod(reached))
+    csv = str(ROOT / "tests" / "fixtures_csv" / "states" / "entry_16_1.csv")
+    art = SimpleNamespace(circuit_shape=(4, 2, 8), device=torch.device("cuda", 0))
+    for prove in (INC.prove_chain, INC.prove_chain_snark):
+        with pytest.raises(Reached) as got:
+            prove(art, [csv], 0)
+        assert got.value.args == (torch.device("cuda", 0),)
 
 
 def _fake_cuda(shape):

@@ -1,8 +1,9 @@
 """The CUDA kernels on the card: K1, K2, K3, K4, the K5/K6 probes and X4 (the
 EC-FFT) against their plain torch versions at ragged and main-path shapes,
 the device tree and the Pippenger on the card against the same code on the
-CPU and the native host code, and X4's Lagrange bases against the analytic
-ones. Exact (field elements; exact u32 for ``bcast``).
+CPU and the native host code, X4's Lagrange bases against the analytic
+ones, and the incremental step chain on the card against the JAX package's
+bytes. Exact (field elements; exact u32 for ``bcast``).
 
 Every test is marked ``cuda`` and skips without a CUDA device (the kernels
 have no CPU mode). The file imports no JAX, so it runs where JAX is absent:
@@ -235,3 +236,27 @@ def test_x4_lagrange_bases_match_analytic(dev, k):
     analytic Lagrange bases."""
     params = ParamsKZG.setup(k)
     assert EC.g_to_lagrange(params.g, k, dev) == params.g_lagrange
+
+
+@pytest.mark.cuda
+def test_incremental_chain_on_the_card_equals_jax_bytes(dev):
+    """``prove_chain`` over entry_16 rounds 1-3 on the card (trees through
+    K1, proofs through K3) gives the JAX package's step proofs
+    (tests/fixtures_torch_incremental.json, part ``steps``)."""
+    import json
+    from pathlib import Path
+
+    from circuits_halo2_tpu_torch.models import incremental as INC
+    from circuits_halo2_tpu_torch.utils import pipeline
+
+    here = Path(__file__).parent
+    fix = json.loads((here / "fixtures_torch_incremental.json").read_text())["steps"]
+    art = pipeline.generate_incremental_artifacts(
+        fix["k"], str(here / fix["ptau"]), fix["levels"], fix["n_currencies"], fix["n_bytes"],
+        device=dev)
+    k1, k3 = PK.hash_batch.launches, MK.segmented_scan.launches
+    chain = INC.prove_chain(art, [str(here / p) for p in fix["csvs"]], fix["user_index"])
+    assert PK.hash_batch.launches > k1 and MK.segmented_scan.launches > k3
+    assert [s.proof.hex() for s in chain.steps] == fix["proofs"]
+    assert [hex(v) for v in chain.liab_states] == fix["liab_states"]
+    assert INC.verify_chain(art, chain)

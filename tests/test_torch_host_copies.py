@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's host-only modules against the
 originals: identical sources where the copy is verbatim (the Solidity
 generator differs only in the header line it writes, the operator's round
-only by its ``device`` keyword), the same code in
+only by its ``device`` keyword, Spartan only by its MSM route), the
+recursion side's host modules and circom sources, the same code in
 ``csrc/fieldcc.cpp`` (comments aside), and the same outputs on the same
 inputs where the copy was re-pointed to the port's native library (field
 inversion, keccak, transcripts, the SRS file). Exact."""
@@ -35,6 +36,9 @@ SRS = ROOT / "tests" / "fixtures_ptau_hermez-raw-11"
     "contracts/solidity/Summa.sol", "contracts/solidity/IVerifier.sol", "contracts/__init__.py",
     "backend/apis.py", "backend/signer.py", "backend/address_ownership.py",
     "backend/web3_transport.py", "backend/__init__.py",
+    "ops/poseidon_round_numbers.py", "ops/grain.py", "ops/poseidon_circom.py", "ops/grumpkin.py",
+    "merkle/circom_mst.py", "merkle/circom_r1cs.py", "models/nova_fold.py",
+    "models/r1cs_dsl.py", "models/nova_cycle.py",
 ])
 def test_verbatim_copies(rel):
     assert (PORT / rel).read_text() == (JAX_PKG / rel).read_text()
@@ -69,6 +73,44 @@ def test_round_copy_differs_only_by_the_device_keyword():
         "k, params_path, levels, n_currencies, n_bytes",
         "self.snapshot = Snapshot(mst, params_path, levels, n_currencies, n_bytes)",
     ]
+
+
+@pytest.mark.parametrize("name", ["merkle_sum_tree.circom", "incremental_mst_inclusion.circom"])
+def test_circom_sources_copied(name):
+    assert (PORT / "circom" / name).read_bytes() == (JAX_PKG / "circom" / name).read_bytes()
+
+
+def test_spartan_copy_differs_only_in_its_msm_route():
+    """``_msm`` goes to the port's native Pippenger; the JAX package's
+    ``_msm_host`` reaches the same C++ Pippenger (and a Python one only when
+    the library is absent, where the port raises)."""
+    changed = _differing_lines("models/spartan.py")
+    assert [line.strip() for _, ours in changed for line in ours] == [
+        '"""Host MSM via the port\'s native C++ Pippenger (``native.g1_msm``),',
+        "built with g++ on first use.\"\"\"",
+        "from .. import native",
+        "return native.g1_msm(points, [s % P for s in scalars])",
+    ]
+    assert [line.strip() for theirs, _ in changed for line in theirs] == [
+        '"""Host MSM via the native C++ Pippenger when built (msm._msm_host),',
+        "pure-Python fallback otherwise.\"\"\"",
+        "from ..ops.msm import _msm_host",
+        "return _msm_host(points, scalars)",
+    ]
+
+
+def test_spartan_msm_equals_the_jax_route():
+    from circuits_halo2_tpu.models import spartan as JSP
+    from circuits_halo2_tpu_torch.models import nova_fold as NF
+    from circuits_halo2_tpu_torch.models import spartan as SP
+
+    bases = NF.pedersen_bases(40)
+    rng = np.random.default_rng(1)
+    scalars = [int.from_bytes(rng.bytes(32), "little") for _ in range(40)]  # some >= r
+    scalars[5] = 0
+    got = SP._msm(bases, scalars)
+    assert got == JSP._msm(bases, scalars)
+    assert got == TC.g1_msm_pippenger(bases, [s % TF.FR_MOD for s in scalars])
 
 
 def test_fieldcc_copy_has_the_same_code():
