@@ -5,7 +5,7 @@
 Builds the port's CUDA kernels from ``circuits_halo2_tpu_torch/csrc``,
 checks each of the seven (K1-K6 and X4, the EC-FFT) against its plain
 torch version on the card (X4 at the path's 2^10 and 2^13 in two child
-processes, beside the other checks), then drives five paths through their user
+processes, beside the other checks), then drives six paths through their user
 entry points, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -47,6 +47,17 @@ just after:
 - the recursion example (``examples/nova_incremental_verifier``: the
   circom-parity chain, the k=11 step chain on the card, NIFS folding and
   Spartan compression) in a child process started after the kernel build;
+- the rank mesh (``parallel/*``; K1, K3), each rank a child process of
+  ``parallel/worker.launch``: a 4-rank gloo world on the one card (asked
+  for explicitly; its collectives staged through host memory, since NCCL
+  refuses two ranks on one GPU) whose every rank hashes and reduces the
+  criterion's 2^20 leaves over the mesh (root equal to the host root),
+  runs keygen at k=13 under the mesh (VK equal to the single-device VK)
+  and proves the JAX package's synthetic criterion witness with the
+  Keccak transcript (bytes equal to the fixture, verified, a flipped byte
+  rejected); then a 1-rank NCCL world whose sharded NTT (2^15, batch 4)
+  and commitment (2^13 lanes) equal the single-device results. The
+  ranks' launches count toward the path's;
 - the Poseidon engine at the criterion width: the 2^20 tree's root
   through the tensor-core sponge (K4) from raw digests and sums, equal to
   the host root; the bare permutation (K2) of the leaf states; and the
@@ -85,6 +96,7 @@ CRITERION_FIXTURE = TESTS / "fixtures_torch_criterion.json"
 INCREMENTAL_FIXTURE = TESTS / "fixtures_torch_incremental.json"
 CHAIN_ROUNDS = 3  # rounds of the criterion-width incremental chain
 CHAIN_USER = 777_777  # the user proved across them
+PARALLEL_RANKS = 4  # gloo ranks of the parallel path, all on the one card
 ROUND_BALANCE_CAP = 1 << 40  # per entry: a 2^20-leaf sum stays below 2^60
 EXAMPLE = "circuits_halo2_tpu_torch.examples.nova_incremental_verifier"
 G1_GEN = (1, 2)  # the BN254 G1 generator, affine
@@ -538,15 +550,27 @@ def synthetic_proofs(art, fix: dict, name: str) -> None:
         log(f"{name} Blake2b proof {len(got) // 2} B == JAX fixture, verifies")
 
 
-def verify_and_flip(art, proof: bytes, instances, name: str) -> None:
-    from circuits_halo2_tpu_torch.utils import pipeline
+def verify_and_flip(art, proof: bytes, instances, name: str, transcript_cls=None) -> None:
+    """The proof verifies (under Blake2b unless ``transcript_cls`` says
+    otherwise); a flipped instance and a flipped proof byte are rejected."""
+    from circuits_halo2_tpu_torch.models.verifier import verify
+    from circuits_halo2_tpu_torch.utils.transcript import Blake2bTranscript
 
-    require(pipeline.full_verifier(art, proof, instances), f"{name} proof does not verify")
+    def verifies(p, inst) -> bool:  # a malformed proof raises, as in pipeline.full_verifier
+        try:
+            return verify(art.params, art.vk, inst, p,
+                          transcript_cls=transcript_cls or Blake2bTranscript)
+        except (ValueError, AssertionError, KeyError):
+            return False
+
+    require(verifies(proof, instances), f"{name} proof does not verify")
     bad = [list(instances[0])]
     bad[0][2] += 1
-    require(not pipeline.full_verifier(art, proof, bad),
-            f"{name} proof verifies against a flipped instance")
-    log(f"{name} proof {len(proof)} B verifies; flipped instance rejected")
+    require(not verifies(proof, bad), f"{name} proof verifies against a flipped instance")
+    flipped = bytearray(proof)
+    flipped[len(proof) // 2] ^= 1
+    require(not verifies(bytes(flipped), instances), f"{name} proof verifies with a flipped byte")
+    log(f"{name} proof {len(proof)} B verifies; flipped instance and flipped byte rejected")
 
 
 def criterion(device):
@@ -1036,6 +1060,145 @@ def incremental(device, card, digests) -> None:
     incremental_byte_gate(device, incremental_criterion(device, card, digests))
 
 
+def parallel_rank(mesh, leaves: str, root: str, sums: list, fixed: list,
+                  permutation: list) -> dict:
+    """One rank of the parallel path's gloo world (``parallel/worker``): the
+    criterion's 2^20 leaves hashed and reduced over the mesh (K1), keygen
+    and the Keccak proof of the JAX package's synthetic criterion witness
+    with the mesh set (K3 on the rank's block of every MSM); the root, the
+    VK and the proof bytes must equal the single-device ones."""
+    from circuits_halo2_tpu_torch.merkle.device_tree import digests_to_limbs16, u64_to_limbs16
+    from circuits_halo2_tpu_torch.merkle.mst import Entry, synthetic_merkle_proof
+    from circuits_halo2_tpu_torch.models.mst_inclusion import MstInclusionCircuit
+    from circuits_halo2_tpu_torch.ops import field_torch as FT
+    from circuits_halo2_tpu_torch.ops import msm_kernel as MK
+    from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
+    from circuits_halo2_tpu_torch.parallel import auto, sharding
+    from circuits_halo2_tpu_torch.utils import pipeline
+    from circuits_halo2_tpu_torch.utils.transcript import KeccakTranscript
+
+    levels, ncur, nbytes, k = CRITERION
+    require(mesh.backend == "gloo" and mesh.size == PARALLEL_RANKS, f"not a gloo mesh: {mesh}")
+    name, dev, seconds = f"rank {mesh.rank}", mesh.device, {}
+    data = np.load(leaves)
+    t0 = time.perf_counter()
+    user = FT.to_mont(torch.as_tensor(digests_to_limbs16(data["digests"]), device=dev))
+    bal = FT.to_mont(torch.as_tensor(np.stack([u64_to_limbs16(data["balances"][:, c])
+                                               for c in range(ncur)], axis=1), device=dev))
+    leaf_hashes = sharding.sharded_hash_batch(mesh, torch.cat([user[None], bal.movedim(1, 0)]))
+    root_h, root_b = sharding.sharded_tree_reduce(mesh, leaf_hashes, bal)
+    got = [hex(FT.from_mont_ints(root_h)[0]), [FT.from_mont_ints(root_b[:, c])[0]
+                                               for c in range(ncur)]]
+    seconds["tree"] = time.perf_counter() - t0
+    require(got == [root, sums], f"{name}: sharded root {got} != host root {[root, sums]}")
+
+    auto.set_mesh(mesh)
+    t0 = time.perf_counter()
+    art = pipeline.generate_setup_artifacts(k, None, levels, ncur, nbytes, dev)
+    seconds["keygen"] = time.perf_counter() - t0
+    require([[hex(v) for v in pt] for pt in art.vk.fixed_commitments] == fixed
+            and [[hex(v) for v in pt] for pt in art.vk.permutation_commitments] == permutation,
+            f"{name}: the mesh VK differs from the single-device VK")
+    fix = json.loads(CRITERION_FIXTURE.read_text())["criterion"]
+    witness = synthetic_merkle_proof(fix["levels"], fix["n_currencies"],
+                                     Entry(fix["user"], fix["balances"]), seed=fix["seed"])
+    circuit = MstInclusionCircuit.init(levels, ncur, nbytes, witness)
+    t0 = time.perf_counter()
+    proof = pipeline.gen_proof_solidity_calldata(art, circuit).proof[2:]
+    seconds["prove"] = time.perf_counter() - t0
+    auto.clear_mesh()
+    require(proof == fix["keccak_proof"], f"{name}: the mesh Keccak proof differs from the JAX "
+            "package's: " + first_difference(proof, fix["keccak_proof"]))
+    verify_and_flip(art, bytes.fromhex(proof), circuit.instances(), name, KeccakTranscript)
+    return {"rank": mesh.rank, "k1": PK.hash_batch.launches, "k3": MK.segmented_scan.launches,
+            "seconds": seconds, "sharded": mesh.sharded, "collectives": mesh.stats.calls,
+            "collective_bytes": mesh.stats.nbytes, "collective_seconds": mesh.stats.seconds}
+
+
+def nccl_rank(mesh) -> dict:
+    """The rank of a 1-rank NCCL world: the sharded NTT of k=13's extended
+    domain (2^15, a batch of 4) and the sharded commitment of 2^13 lanes
+    (a batch of 3) equal the single-device results, their collectives
+    through NCCL."""
+    import torch.distributed as dist
+    from circuits_halo2_tpu_torch.ops import field_torch as FT
+    from circuits_halo2_tpu_torch.ops import msm as M
+    from circuits_halo2_tpu_torch.ops import msm_kernel as MK
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
+    from circuits_halo2_tpu_torch.parallel import msm_sharded, ntt_sharded
+    from circuits_halo2_tpu_torch.utils.srs import setup_cached
+
+    require(dist.get_backend() == "nccl" and mesh.backend == "nccl" and mesh.size == 1,
+            f"not a 1-rank NCCL world: {dist.get_backend()}, {mesh}")
+    rng = np.random.default_rng(SEED)
+    dev = mesh.device
+
+    def mont(shape):
+        count = int(np.prod(shape[1:]))
+        return torch.as_tensor(FT.to_mont_limbs(random_fr(rng, count)), device=dev).reshape(shape)
+
+    a, omega = mont((16, 4, 1 << 15)), NTT.omega_for_k(15)
+    t0 = time.perf_counter()
+    got = ntt_sharded.ntt_sharded_batched(mesh, a, omega)
+    torch.cuda.synchronize()
+    seconds = {"ntt": time.perf_counter() - t0}
+    require(torch.equal(got, NTT._ntt_device(a, omega)),
+            "the sharded NTT over NCCL differs from the single-device NTT")
+    xs, ys, valid = M.precompute_bases(setup_cached(13).g_lagrange, dev)
+    scal = mont((16, 3, 1 << 13))
+    before = MK.segmented_scan.launches
+    t0 = time.perf_counter()
+    acc = msm_sharded.commit_sharded_device(mesh, xs, ys, valid, scal)
+    torch.cuda.synchronize()
+    seconds["commit"] = time.perf_counter() - t0
+    k3 = MK.segmented_scan.launches - before
+    require(M._combine_windows_host(acc) == M._combine_windows_host(M._commit_dev(xs, ys, valid, scal)),
+            "the sharded commitment over NCCL differs from the single-device one")
+    require(mesh.stats.calls.get("all_to_all", 0) > 0 and mesh.stats.calls.get("all_gather", 0) > 0,
+            f"collectives did not run: {mesh.stats.calls}")
+    return {"k3": k3, "seconds": seconds, "collectives": mesh.stats.calls,
+            "collective_bytes": mesh.stats.nbytes, "collective_seconds": mesh.stats.seconds}
+
+
+def parallel(spawn, card, art, digests, balances, host_root) -> dict:
+    """The mesh on the one card: a 4-rank gloo world (its collectives staged
+    through host memory: NCCL refuses two ranks on one GPU) and a 1-rank
+    NCCL world, each rank a child process of ``parallel/worker.launch``
+    started by ``spawn``. Returns the ranks' K1 and K3 launches."""
+    from circuits_halo2_tpu_torch import build
+    from circuits_halo2_tpu_torch.parallel import worker
+
+    leaves = build.build_dir() / "parallel_leaves.npz"
+    np.savez(leaves, digests=digests, balances=balances)
+    args = {"leaves": str(leaves), "root": hex(host_root[0]), "sums": host_root[1],
+            "fixed": [[hex(v) for v in pt] for pt in art.vk.fixed_commitments],
+            "permutation": [[hex(v) for v in pt] for pt in art.vk.permutation_commitments]}
+    me = str(Path(__file__).resolve())
+    with Phase(f"parallel: {PARALLEL_RANKS} gloo ranks on one card (2^20 tree, keygen and "
+               "Keccak prove k=13 under the mesh)"):
+        log(f"parallel: gloo asked for explicitly, collectives staged through host memory "
+            f"(NCCL refuses two ranks on one GPU) ({card})")
+        ranks = worker.launch(PARALLEL_RANKS, "gloo", "cuda", f"{me}:parallel_rank", args,
+                              timeout=900, popen=spawn)
+        for r in ranks:
+            require(r["k1"] > 0 and r["k3"] > 0, f"rank {r['rank']}: K1 or K3 never launched")
+            log(f"  rank {r['rank']}: tree {r['seconds']['tree']:.3f} s, keygen "
+                f"{r['seconds']['keygen']:.3f} s, prove {r['seconds']['prove']:.3f} s; K1 {r['k1']}, "
+                f"K3 {r['k3']}; sharded {r['sharded']}; collectives {r['collectives']}, "
+                f"{r['collective_bytes']} B, {r['collective_seconds']:.3f} s")
+        log(f"{PARALLEL_RANKS} ranks: the 2^20 sharded root == host root, the mesh VK == the "
+            "single-device VK, the mesh Keccak proof == JAX fixture on every rank, verifies, "
+            f"flipped byte rejected ({card})")
+    with Phase("parallel: 1 NCCL rank (sharded NTT 2^15 x 4, commitment 2^13 x 3)"):
+        nccl = worker.launch(1, "nccl", "cuda", f"{me}:nccl_rank", timeout=300, popen=spawn)[0]
+        log(f"  NCCL rank: NTT {nccl['seconds']['ntt']:.3f} s, commit "
+            f"{nccl['seconds']['commit']:.3f} s, K3 {nccl['k3']}; collectives "
+            f"{nccl['collectives']}, {nccl['collective_bytes']} B, "
+            f"{nccl['collective_seconds']:.3f} s ({card})")
+        log("NCCL rank: the sharded NTT and commitment == single-device results")
+    return {"k1": sum(r["k1"] for r in ranks), "k3": sum(r["k3"] for r in ranks) + nccl["k3"]}
+
+
 def entry16(device):
     """entry_16 at k=11 with the hermez-raw-11 SRS: byte-equal to the JAX proofs."""
     from circuits_halo2_tpu_torch.merkle.mst import MerkleSumTree
@@ -1348,9 +1511,10 @@ def main() -> int:
         return 0
     children: list[subprocess.Popen] = []
 
-    def spawn(args: list[str]) -> subprocess.Popen:
-        children.append(subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True))
+    def spawn(args: list[str], **kwargs) -> subprocess.Popen:
+        kwargs = {"cwd": ROOT, "stdout": subprocess.PIPE, "stderr": subprocess.STDOUT,
+                  "text": True} | kwargs
+        children.append(subprocess.Popen(args, **kwargs))
         return children[-1]
 
     try:
@@ -1441,11 +1605,12 @@ def run(spawn) -> int:
     log(f"proving-path launches: K1 {launches['k1']}, K3 {launches['k3']}, X4 {launches['x4']}")
 
     def counted(name, kernels, run):
-        """Drive one more path with every count set to 0; its kernels must launch."""
+        """Drive one more path with every count set to 0; its kernels must
+        launch. ``run`` returns the launches of its child processes, if any."""
         for w in wrappers.values():
             w.launches = 0
-        run()
-        counts = {key: w.launches for key, w in wrappers.items()}
+        children = run() or {}
+        counts = {key: w.launches + children.get(key, 0) for key, w in wrappers.items()}
         log(f"{name} launches: " + ", ".join(f"{key.upper()} {c}" for key, c in counts.items()))
         require(all(counts[key] for key in kernels), f"{name}: a kernel of its path never launched")
         for key in kernels:
@@ -1464,6 +1629,8 @@ def run(spawn) -> int:
         require(example.returncode == 0, f"the example exited with {example.returncode}")
         log(f"example exited 0; joined {time.perf_counter() - example_t0:.1f} s after it was "
             f"started ({card})")
+    counted("parallel", ("k1", "k3"),
+            lambda: parallel(spawn, card, art, digests, balances, host_root))
 
     for key in ("k2", "k4", "k5", "k6"):
         wrappers[key].launches = 0

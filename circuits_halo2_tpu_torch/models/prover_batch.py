@@ -29,10 +29,14 @@ is what remains.
 Byte compatibility: ``prove_batch(params, pk, [c], ...)[0]`` equals
 ``prove(params, pk, c, ...)`` with the same ``BlindingRng`` -- the same
 draw order per user and the same transcript framing.
+
+A batch runs on one device: the rank mesh (``parallel/auto``) is suspended
+for the call and restored after it, as in the JAX package.
 """
 
 from __future__ import annotations
 
+from ..parallel import auto
 from ..utils.srs import ParamsKZG
 from ..utils.transcript import KeccakTranscript
 from .keygen import ProvingKey
@@ -59,5 +63,6 @@ def prove_batch(
     rngs = rngs or [BlindingRng() for _ in range(nusers)]
     if nusers == 0 or not nusers == len(instances_list) == len(rngs):
         raise ValueError("prove_batch needs a circuit, and one instance list and rng for each")
-    return prove_users(params, pk, circuits, config, instances_list, rngs, transcript_cls,
-                       vk_digest, device)
+    with auto.suspended():
+        return prove_users(params, pk, circuits, config, instances_list, rngs, transcript_cls,
+                           vk_digest, device)

@@ -19,10 +19,14 @@ the point at infinity. The bucket method per commitment batch:
 
 The same torch code runs on any device; only K3 dispatches on it (plain
 scan on CPU, the CUDA kernel on a GPU), so the CPU tests exercise the
-card's algorithm.
+card's algorithm. Under a rank mesh (``parallel/auto``) steps 1-4 run on
+each rank's block of the lanes and the partials are summed over ranks
+before step 5 (``parallel/msm_sharded``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -31,6 +35,7 @@ from . import field as F
 from . import field_torch as FT
 from . import msm_kernel as MK
 from .. import native
+from ..parallel import auto
 
 FQ = FT.FQ
 
@@ -357,13 +362,23 @@ def msm_commit_dev_async(points, scal_mont: torch.Tensor):
     ``finish()`` that materialises the B host affine points (or None).
 
     On a GPU the launches are queued on the current stream and only
-    ``finish()`` waits, so the caller can enqueue more work first."""
+    ``finish()`` waits, so the caller can enqueue more work first. Under
+    an active mesh (``_active_mesh``) each rank runs its block of the lanes
+    (``parallel/msm_sharded``) and the partials are gathered here, at
+    dispatch, in the same order on every rank."""
     if scal_mont.dim() != 3 or scal_mont.shape[2] > len(points):
         raise ValueError(f"scal_mont must be (16, B, m <= {len(points)}), got {tuple(scal_mont.shape)}")
     b = int(scal_mont.shape[1])
     xs, ys, valid = precompute_bases(points, scal_mont.device)
-    chunk_b = _batch_chunk(b, int(xs.shape[1]))
-    accs = [_commit_dev(xs, ys, valid, scal_mont[:, lo : lo + chunk_b])
+    n = int(xs.shape[1])
+    chunk_b = _batch_chunk(b, n)
+    commit = _commit_dev
+    mesh = _active_mesh(n)
+    if mesh is not None:
+        from ..parallel import msm_sharded
+
+        commit = functools.partial(msm_sharded.commit_sharded_device, mesh)
+    accs = [commit(xs, ys, valid, scal_mont[:, lo : lo + chunk_b])
             for lo in range(0, b, chunk_b)]
 
     def finish():
@@ -373,6 +388,16 @@ def msm_commit_dev_async(points, scal_mont: torch.Tensor):
         return out
 
     return finish
+
+
+def _active_mesh(n: int):
+    """The mesh to shard an n-lane MSM over, or None: none is active, or n
+    does not split into equal blocks of at least 256 lanes (the chunked
+    scan's minimum)."""
+    mesh = auto.get_mesh()
+    if mesh is None or n % mesh.size or n // mesh.size < 256:
+        return None
+    return mesh
 
 
 def msm_commit_dev(points, scal_mont: torch.Tensor) -> list:

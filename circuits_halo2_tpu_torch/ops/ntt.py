@@ -6,7 +6,11 @@ Montgomery limb tensor; ``intt`` is ``ntt(a, omega^-1)`` scaled by n^-1.
 The device form is iterative radix-2 DIT: one bit-reversal gather, then
 log2(n) butterfly stages, each a reshape plus one batched mont_mul against
 that stage's twiddle table. The JAX NTT is XLA (not Pallas), so this stays
-plain torch here; a hand kernel is later work.
+plain torch here; a hand kernel for it is ROADMAP X1.
+
+With a mesh active (``parallel/auto``) a transform of n >= 2^12 points
+(and n >= size^2) runs as the four-step ``parallel/ntt_sharded``, the JAX
+package's routing; the result is the same.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from . import field as F
 from . import field_torch as FT
+from ..parallel import auto
 
 
 def bit_reverse_indices(n: int) -> np.ndarray:
@@ -74,8 +79,37 @@ def _tables(n: int, omega: int, device: str):
     return rev, tws
 
 
+# The JAX package's threshold, so that the same transforms shard: below it
+# the all-to-all and the gathers are judged to cost more than one device
+# doing the whole transform (not measured on the port).
+SHARD_THRESHOLD = 1 << 12
+
+
+def _shard_mesh(n: int):
+    """The mesh to shard an n-point transform over, or None: none is
+    active, n is below ``SHARD_THRESHOLD``, or the four-step blocks do not
+    split over its ranks (which needs n >= size^2)."""
+    mesh = auto.get_mesh()
+    if mesh is None or n < SHARD_THRESHOLD:
+        return None
+    from ..parallel import ntt_sharded
+
+    return mesh if ntt_sharded.split(n, mesh.size) is not None else None
+
+
 def ntt(a: torch.Tensor, omega: int) -> torch.Tensor:
-    """NTT along the last axis of a (16, *batch, n) Montgomery limb tensor."""
+    """NTT along the last axis of a (16, *batch, n) Montgomery limb tensor;
+    over the active mesh when ``_shard_mesh`` gives one."""
+    mesh = _shard_mesh(int(a.shape[-1]))
+    if mesh is not None:
+        from ..parallel import ntt_sharded
+
+        return ntt_sharded.ntt_sharded_batched(mesh, a, omega)
+    return _ntt_device(a, omega)
+
+
+def _ntt_device(a: torch.Tensor, omega: int) -> torch.Tensor:
+    """The single-device transform (the body of ``ntt``)."""
     n = int(a.shape[-1])
     rev, tws = _tables(n, omega, str(a.device))
     x = a.index_select(-1, rev)

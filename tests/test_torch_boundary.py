@@ -39,9 +39,12 @@ for name in names:
 import chip_smoke
 sys.path.insert(0, "tests")
 import test_torch_cuda
+import torch_parallel_tasks
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "circuits_halo2_tpu"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+mesh = {"circuits_halo2_tpu_torch.parallel." + m
+        for m in ("auto", "sharding", "msm_sharded", "ntt_sharded", "worker")}
+print(len(names), bad, sorted(mesh - set(names)))
+sys.exit(1 if bad or len(names) < 20 or not mesh <= set(names) else 0)
 """
 
 
@@ -52,7 +55,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "tests/test_torch_cuda.py", *PORT_PY])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "tests/test_torch_cuda.py",
+                                  "tests/torch_parallel_tasks.py", *PORT_PY])
 def test_card_side_files_import_only_the_port(path):
     """What runs on the card, every module of the port included, names no
     module of JAX or of the JAX package."""
@@ -130,6 +134,28 @@ def test_examples_default_to_the_card(name, monkeypatch):
     with pytest.raises(Reached) as got:
         example.main([])
     assert got.value.args == ("cuda:0",)
+
+
+def test_mesh_defaults_to_the_card(monkeypatch):
+    """A rank's mesh lies on its card, ``cuda:{rank % device_count}``,
+    unless the caller asks for the CPU; with no card it raises."""
+    import torch.distributed as dist
+
+    from circuits_halo2_tpu_torch.parallel import sharding
+
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a host without CUDA")
+    with pytest.raises(RuntimeError):
+        sharding.default_device(0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert sharding.default_device(5) == torch.device("cuda", 1)
+    assert inspect.signature(sharding.make_mesh).parameters["device"].default is None
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        assert sharding.make_mesh().device == torch.device("cuda", 0)
+        assert sharding.make_mesh(device="cpu").device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_proving_and_round_entry_points_default_to_the_card():

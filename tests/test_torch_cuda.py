@@ -2,14 +2,18 @@
 EC-FFT) against their plain torch versions at ragged and main-path shapes,
 the device tree and the Pippenger on the card against the same code on the
 CPU and the native host code, X4's Lagrange bases against the analytic
-ones, and the incremental step chain on the card against the JAX package's
-bytes. Exact (field elements; exact u32 for ``bcast``).
+ones, the incremental step chain on the card against the JAX package's
+bytes, and the sharded commitment of a 1-rank NCCL world against the
+single-device one. Exact (field elements; exact u32 for ``bcast``).
 
 Every test is marked ``cuda`` and skips without a CUDA device (the kernels
 have no CPU mode). The file imports no JAX, so it runs where JAX is absent:
 
     CIRCUITS_TPU_NO_CACHE=1 python -m pytest tests/test_torch_cuda.py -o addopts="" -m cuda -q
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,9 +28,13 @@ from circuits_halo2_tpu_torch.ops import msm as TM
 from circuits_halo2_tpu_torch.ops import msm_kernel as MK
 from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
 from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
+from circuits_halo2_tpu_torch.parallel import worker
 from circuits_halo2_tpu_torch.scripts import exp_poseidon_mxu as EXP
 from circuits_halo2_tpu_torch.utils import ec_fft as EC
 from circuits_halo2_tpu_torch.utils.srs import ParamsKZG
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import torch_parallel_tasks as T  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -260,3 +268,15 @@ def test_incremental_chain_on_the_card_equals_jax_bytes(dev):
     assert [s.proof.hex() for s in chain.steps] == fix["proofs"]
     assert [hex(v) for v in chain.liab_states] == fix["liab_states"]
     assert INC.verify_chain(art, chain)
+
+
+@pytest.mark.cuda
+def test_nccl_rank_commit_equals_single_device(dev):
+    """A 1-rank NCCL world on the card (``parallel/worker.launch``): the
+    sharded commitment, its gather through NCCL, equals the single-device
+    commitment and the host Pippenger."""
+    got = worker.launch(1, "nccl", "cuda", f"{T.__file__}:nccl_commit", timeout=300)[0]
+    assert got["backend"] == "nccl" and got["equal"]
+    assert got["collectives"]["all_gather"] == 1
+    points, scal = T.commit_inputs()
+    assert tuple(int(v, 16) for v in got["point"]) == native.g1_msm(points, scal)
