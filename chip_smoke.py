@@ -5,7 +5,8 @@
 Builds the port's CUDA kernels from ``circuits_halo2_tpu_torch/csrc``,
 checks each of the seven (K1-K6 and X4, the EC-FFT) against its plain
 torch version on the card (X4 at the path's 2^10 and 2^13 in two child
-processes, beside the other checks), then drives six paths through their user
+processes, beside the other checks; at 2^16, where the card is full, against
+setup(16)'s analytic Lagrange bases), then drives six paths through their user
 entry points, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -125,6 +126,7 @@ K3_BYTES = 2 * 16 * 8 + 8 + 1 + 3 * 16 * 8
 # 32-byte coordinates), a plain scalar 32
 DBL_WIDE = 2 * MUL + 5 * SQR
 ADD_WIDE = 11 * MUL + 5 * SQR
+X4_BIG = 16  # X4's exact check at full width: g_to_lagrange of setup(16)'s bases
 
 
 def log(msg: str) -> None:
@@ -416,8 +418,9 @@ def x4_ceremony(device) -> dict:
     err = max_abs_err(got, want)
     require(err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)),
             "X4 differs from its plain version at the ceremony downsize (n=2^10)")
-    return {"x4_err": err, "x4": [cuda_ms(lambda: EK.ec_fft(*args), 3),
-                                  start.elapsed_time(end), *x4_bound(1 << k, transforms)]}
+    return {"x4_err": err, "x4": [cuda_ms(lambda: EK.ec_fft(*args), 3), start.elapsed_time(end),
+                                  *x4_glv_bound(1 << k, transforms),
+                                  x4_bound(1 << k, transforms)[0]]}
 
 
 def x4_full_width(device) -> int:
@@ -441,14 +444,14 @@ def x4_full_width(device) -> int:
 
 
 def x4_bound(n: int, transforms) -> tuple[float, str]:
-    """X4's least time for these transforms: the fewest products of each
-    butterfly's double-and-add by its twiddle (a doubling per bit below the
-    top one, a complete add per set bit after the first) and of its two
-    adds, and of the scale pass; the bytes of the points in and out, the
-    twiddles and the scales."""
+    """The least time for the reference's work on these transforms, beside
+    X4's own (``x4_glv_bound``): the fewest products of each butterfly's
+    double-and-add by its twiddle (a doubling per bit below the top one, a
+    complete add per set bit after the first) and of its two adds, and of
+    the scale pass; the bytes of the points in and out, the twiddles and
+    the scales."""
     from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
     from circuits_halo2_tpu_torch.ops import field as F
-    from circuits_halo2_tpu_torch.ops import field_torch as FT
 
     def smul(k: int) -> int:
         k %= F.FR_MOD
@@ -456,7 +459,7 @@ def x4_bound(n: int, transforms) -> tuple[float, str]:
 
     wide = 0
     for omega, scale in transforms:
-        twiddles = FT.limbs_to_ints(EK.twiddle_table(n, omega % F.FR_MOD))
+        twiddles = EK.twiddles(n, omega % F.FR_MOD)
         for s in range(n.bit_length() - 1):
             butterflies = n >> (s + 1)  # per twiddle of the stage
             wide += sum(butterflies * (smul(w) + 2 * ADD_WIDE)
@@ -465,6 +468,72 @@ def x4_bound(n: int, transforms) -> tuple[float, str]:
             wide += n * smul(scale)
     nbytes = len(transforms) * (2 * n * 3 * FE + (n - 1) * FE + FE)
     return bound_ms(wide, 0, nbytes)
+
+
+def glv_half_work(digits: np.ndarray) -> np.ndarray:
+    """Wide multiplies of each GLV half's windowed multiply in X4 (its digits
+    along the last axis): the table T_2..T_m for m its largest |digit| (a
+    doubling for even m, a complete add for odd), four doublings per digit
+    below the top nonzero one, a complete add per nonzero digit below it."""
+    d = np.abs(digits.astype(np.int64))
+    nz = d != 0
+    nd = d.shape[-1]
+    top = np.where(nz.any(-1), nd - 1 - np.argmax(nz[..., ::-1], axis=-1), -1)
+    table = np.cumsum([0, 0] + [DBL_WIDE if m % 2 == 0 else ADD_WIDE for m in range(2, 9)])
+    below = np.maximum(top, 0)
+    return table[d.max(-1)] + 4 * below * DBL_WIDE + (nz.sum(-1) - (top >= 0)) * ADD_WIDE
+
+
+def x4_glv_bound(n: int, transforms) -> tuple[float, str]:
+    """X4's least time for the work its design does on these transforms: per
+    butterfly both halves' windowed multiplies (``glv_half_work``), phi's
+    product, V = R_0 + R_1 once and the two butterfly adds; per scaled point
+    both halves, phi and one add. A half whose digits are all 0 is infinity:
+    it needs no phi, and an add with it no product. Bytes: the points in and
+    out, the digits and beta."""
+    from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
+    from circuits_halo2_tpu_torch.ops import field as F
+
+    def work(digits: np.ndarray) -> np.ndarray:
+        live = (digits != 0).any(-1)  # (..., 2): the halves that are not infinity
+        return (glv_half_work(digits).sum(-1) + MUL * live[..., 1]
+                + ADD_WIDE * live.all(-1))
+
+    wide = 0
+    for omega, scale in transforms:
+        digits = EK.twiddle_digits(n, omega % F.FR_MOD)
+        per = work(digits) + 2 * ADD_WIDE * (digits != 0).any((-1, -2))
+        for s in range(n.bit_length() - 1):
+            butterflies = n >> (s + 1)  # per twiddle of the stage
+            wide += butterflies * int(per[(1 << s) - 1 : (2 << s) - 1].sum())
+        if scale % F.FR_MOD != 1:
+            wide += n * int(work(EK.scalar_digits([scale])).sum())
+    # a transform's n - 1 twiddles' and one scale's digits: n (2, DIGITS) int8 rows
+    nbytes = len(transforms) * (2 * n * 3 * FE + n * 2 * EK.DIGITS) + FE
+    return bound_ms(wide, 0, nbytes)
+
+
+def x4_analytic(device, report) -> None:
+    """X4 where the card is full: ``g_to_lagrange`` of setup(16)'s 2^16
+    monomial bases through X4 equals its analytic Lagrange bases, every
+    point; then X4 on those inputs is timed (CUDA events, 3 warm calls)."""
+    from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
+    from circuits_halo2_tpu_torch.ops import field as F
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
+    from circuits_halo2_tpu_torch.utils import ec_fft as EC
+    from circuits_halo2_tpu_torch.utils.srs import setup_cached
+
+    k, n = X4_BIG, 1 << X4_BIG
+    params = setup_cached(k)
+    require(EC.g_to_lagrange(params.g, k, device) == params.g_lagrange,
+            f"X4 differs from setup({k})'s analytic Lagrange bases")
+    transforms = [(F.fr_inv(NTT.omega_for_k(k)), F.fr_inv(n))]
+    args = EC.transform_inputs(params.g, transforms, device)
+    report["x4_big"] = [cuda_ms(lambda: EK.ec_fft(*args), 3), *x4_glv_bound(n, transforms),
+                        x4_bound(n, transforms)[0]]
+    log(f"X4 n=2^{k} (g_to_lagrange of setup({k}).g): equal to the analytic Lagrange bases; "
+        f"{report['x4_big'][0]:.3f} ms, bound {report['x4_big'][1]:.3f} ms (the reference's "
+        f"double-and-add {report['x4_big'][3]:.3f} ms)")
 
 
 def poseidon_engine(device, digests, balances, host_root):
@@ -1404,19 +1473,23 @@ def timings(device, rng, card, probes, report):
     transforms = [(F.fr_inv(NTT.omega_for_k(13)), F.fr_inv(n))]
     args = EC.transform_inputs(params.g, transforms, device)
     ms = cuda_ms(lambda: EK.ec_fft(*args), 3)
-    bound, by = x4_bound(n, transforms)
+    bound, by = x4_glv_bound(n, transforms)
     log(f"X4 scaled inverse EC-FFT n=2^13 (14 launches): {ms:.3f} ms, bound {bound:.3f} ms "
-        f"({by}) ({card})")
+        f"({by}; the reference's double-and-add {x4_bound(n, transforms)[0]:.3f} ms) ({card})")
     # the 2^10 kernel again here, on a quiet card (its child timed it beside
     # the other checks); the plain time is the child's
     n = 1 << 10
     transforms = [(F.fr_inv(NTT.omega_for_k(10)), F.fr_inv(n))]
     ceremony = ParamsKZG.read(str(TESTS / "fixtures_ptau_hermez-raw-11"))
     args = EC.transform_inputs(ceremony.g[:n], transforms, device)
-    out["x4"] = [cuda_ms(lambda: EK.ec_fft(*args), 3), *report["x4"][1:]]
+    out["x4"] = [cuda_ms(lambda: EK.ec_fft(*args), 3), *report["x4"][1:4]]
     log(f"X4 scaled inverse EC-FFT n=2^10 (11 launches): {out['x4'][0]:.3f} ms "
         f"({report['x4'][0]:.3f} beside the other checks), plain torch {out['x4'][1]:.1f} ms, "
-        f"bound {out['x4'][2]:.4f} ms ({card})")
+        f"bound {out['x4'][2]:.4f} ms (the reference's double-and-add {report['x4'][4]:.4f} "
+        f"ms) ({card})")
+    big = report["x4_big"]
+    log(f"X4 scaled inverse EC-FFT n=2^{X4_BIG} ({X4_BIG + 1} launches): {big[0]:.3f} ms, bound "
+        f"{big[1]:.3f} ms (the reference's double-and-add {big[3]:.3f} ms) ({card})")
     return out
 
 
@@ -1576,6 +1649,8 @@ def run(spawn) -> int:
         check_k5_k6(device, report)
     with Phase("X4 vs plain and the host EC-FFT"):
         check_x4(device, rng, report)
+    with Phase(f"X4 at n=2^{X4_BIG} vs the analytic Lagrange bases"):
+        x4_analytic(device, report)
     with Phase("X4 vs plain at n=2^10 and 2^13 (child processes; waiting for them)"):
         for arg, proc in x4_children.items():
             out = proc.communicate(timeout=1200)[0].strip().splitlines()

@@ -107,8 +107,8 @@ def cuda_library() -> ctypes.CDLL:
             lib.poseidon_mxu_set_constants.argtypes = [vp, vp, vp]
             lib.poseidon_mxu_hash_batch_cuda.argtypes = [vp, vp, i32, i64, vp, vp]
             lib.poseidon_mxu_probe_cuda.argtypes = [i32, vp, vp, vp, i64, i32, vp]
-            lib.ec_fft_stage_cuda.argtypes = [vp, vp, i64, i64, i32, vp]
-            lib.ec_fft_scale_cuda.argtypes = [vp, vp, i64, i64, vp]
+            lib.ec_fft_stage_cuda.argtypes = [vp, vp, vp, i64, i64, i32, i32, vp]
+            lib.ec_fft_scale_cuda.argtypes = [vp, vp, vp, i64, i64, i32, vp]
             for fn in (lib.poseidon_set_constants, lib.poseidon_hash_batch_cuda,
                        lib.poseidon_permute_cuda, lib.msm_scan_cuda,
                        lib.poseidon_mxu_set_constants, lib.poseidon_mxu_hash_batch_cuda,

@@ -1,6 +1,7 @@
-"""Time K1-K6 at their paths' shapes on one GPU, for one checkout.
+"""Time K1-K6 and X4 at their paths' shapes on one GPU, for one checkout.
 
     python circuits_halo2_tpu_torch/scripts/time_kernels.py [--root DIR] [--k 13,14]
+        [--kernels k1,k2,k3,k4,k5,k6,x4]
 
 Imports ``circuits_halo2_tpu_torch`` from ``--root`` (default: the checkout
 that holds this file), so one call can time two checkouts of the package
@@ -17,8 +18,13 @@ through K4 (its 21 launches, each fenced by CUDA events, summed; digests
 and balances from ``--seed``), K5's ``boundary`` and ``mxu_mul`` at 2^16
 lanes x 64 iterations (wrapper time, and ns per element-iteration by the
 experiment's dual-ITERS difference) and K6's one reduced multiply at
-1024 lanes. Prints one JSON line with the times and the card's name and
-power limit. Inputs are random canonical values from ``--seed``.
+1024 lanes. X4 at n = 2^10, 2^13 and 2^16: the scaled inverse transform
+that ``ParamsKZG.downsize`` runs (omega^-1, scale n^-1) of n random points,
+its inputs built by that checkout's own ``utils/ec_fft.transform_inputs``
+and timed through its ``ops/ec_fft_kernel.ec_fft`` (one launch a stage and
+one for the scale). ``--kernels`` names the kernels to time (default all).
+Prints one JSON line with the times and the card's name and power limit.
+Inputs are random canonical values from ``--seed``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+X4_K = (10, 13, 16)  # X4's sizes: both downsizes of the path, and the card full
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -79,6 +87,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--k", default="13")
+    ap.add_argument("--kernels", default="k1,k2,k3,k4,k5,k6,x4")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -90,12 +99,16 @@ def main() -> int:
         raise RuntimeError("time_kernels.py needs a CUDA device")
     from circuits_halo2_tpu_torch import build, native
     from circuits_halo2_tpu_torch.merkle import device_tree as DT
+    from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
+    from circuits_halo2_tpu_torch.ops import field as F
     from circuits_halo2_tpu_torch.ops import field_torch as FT
     from circuits_halo2_tpu_torch.ops import msm as M
     from circuits_halo2_tpu_torch.ops import msm_kernel as MK
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
     from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
     from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
     from circuits_halo2_tpu_torch.scripts import exp_poseidon_mxu as EXP
+    from circuits_halo2_tpu_torch.utils import ec_fft as EC
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -109,16 +122,18 @@ def main() -> int:
         return limbs
 
     out = {"root": str(Path(args.root).resolve()), "card": card}
+    kernels = set(args.kernels.split(","))
     n = 1 << 20
-    for length in (2, 3):
+    for length in (2, 3) if kernels & {"k1", "k4"} else ():
         inp = canonical(length, n).movedim(0, 1).contiguous()
         out[f"k1_L{length}"] = cuda_ms(torch, lambda: PK.hash_batch(inp), args.iters)
         out[f"k4_L{length}"] = cuda_ms(torch, lambda: PM.hash_batch_mxu(inp), args.iters)
-    a, b = canonical(n), canonical(n)
-    out["k2"] = cuda_ms(torch, lambda: PK.permute(a, b), args.iters)
+    if "k2" in kernels:
+        a, b = canonical(n), canonical(n)
+        out["k2"] = cuda_ms(torch, lambda: PK.permute(a, b), args.iters)
 
     rng = np.random.default_rng(args.seed)
-    for k in (int(v) for v in args.k.split(",")):
+    for k in (int(v) for v in args.k.split(",")) if "k3" in kernels else ():
         npts = 1 << k
         points = native.g1_fixed_base_muls((1, 2), [int(v) for v in rng.integers(1, 1 << 62, npts)])
         xs, ys, valid = M.precompute_bases(points, dev)
@@ -133,14 +148,24 @@ def main() -> int:
             px, py, pv = pxy[:16], pxy[16:], valid[perm]
             tag = f"k3_k{k}_b{batch}" + (f"_z{round(zeros * 100)}" if zeros else "")
             out[tag] = cuda_ms(torch, lambda: MK.segmented_scan(px, py, pv, seg, L), args.iters)
-    out["k4_root"], out["k4_root_launches"] = k4_root_ms(torch, np, DT, PM, args)
-    for variant in ("boundary", "mxu_mul"):
+    if "k4" in kernels:
+        out["k4_root"], out["k4_root_launches"] = k4_root_ms(torch, np, DT, PM, args)
+    for variant in ("boundary", "mxu_mul") if "k5" in kernels else ():
         x, y = EXP.make_inputs(variant, EXP.LANES, args.seed, dev)
         out[f"k5_{variant}"] = cuda_ms(torch, lambda: EXP.run(variant, x, y, EXP.ITERS_LO),
                                        args.iters)
         out[f"k5_{variant}_ns"] = EXP.time_variant(variant, dev, args.iters)["ns_per_elem_iter"]
-    x, y = EXP.make_inputs("mxu_mul", 8 * 128, args.seed, dev)
-    out["k6"] = cuda_ms(torch, lambda: EXP.mxu_mul_once(x, y), args.iters)
+    if "k6" in kernels:
+        x, y = EXP.make_inputs("mxu_mul", 8 * 128, args.seed, dev)
+        out["k6"] = cuda_ms(torch, lambda: EXP.mxu_mul_once(x, y), args.iters)
+    for k in X4_K if "x4" in kernels else ():
+        npts = 1 << k
+        points = native.g1_fixed_base_muls((1, 2), [int(v) for v in rng.integers(1, 1 << 62, npts)])
+        omega_inv = F.fr_inv(NTT.omega_for_k(k))
+        x4_args = EC.transform_inputs(points, [(omega_inv, F.fr_inv(npts))], dev)
+        before = EK.ec_fft.launches
+        out[f"x4_k{k}"] = cuda_ms(torch, lambda: EK.ec_fft(*x4_args), args.iters)
+        out[f"x4_k{k}_launches"] = (EK.ec_fft.launches - before) // (args.iters + 1)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -12,8 +12,8 @@ multiplies a point by its twiddle and adds. Two paths:
 
 ``g_to_lagrange`` takes the device path on a GPU from ``DEVICE_MIN`` points
 up, as the reference routes by size, and the host path otherwise: on the
-CPU the plain torch version's 254 x (log n + 1) serial steps cost far more
-than the host loop.
+CPU the plain torch version's 32 windows x (log n + 1) serial steps cost
+far more than the host loop.
 
 Points come back as canonical affine tuples (None is infinity), normalised
 with one batch inversion, so both paths give the same lists.
@@ -80,7 +80,8 @@ def transform_inputs(points: list, transforms: list[tuple[int, int]], device):
     """Host affine points and B (omega, scale) pairs -> the arguments of
     ``ops/ec_fft_kernel.ec_fft`` on ``device``: the points bit-reversed as
     (16, B, n) Montgomery Jacobian coordinates (Z = 1, or 0 for None), the
-    (16, B, n - 1) twiddles and the (16, B) scales (None when all are 1)."""
+    (B, n - 1, 2, DIGITS) int8 GLV digits of the twiddles and the (B, 2,
+    DIGITS) digits of the scales (None when all are 1)."""
     n, nb = len(points), len(transforms)
     if n < 2 or n & (n - 1):
         raise ValueError(f"ec_fft: {n} points is not a power of two >= 2")
@@ -90,13 +91,13 @@ def transform_inputs(points: list, transforms: list[tuple[int, int]], device):
     cols.append(np.where(valid[None, :], FT.FQ.one_mont.reshape(FT.NLIMBS, 1), 0))
     x, y, z = (torch.as_tensor(c, device=device).unsqueeze(1).expand(FT.NLIMBS, nb, n)
                .contiguous() for c in cols)
-    tw = torch.as_tensor(np.stack([EK.twiddle_table(n, om % F.FR_MOD) for om, _ in transforms],
-                                  axis=1), device=device)
+    digits = torch.as_tensor(np.stack([EK.twiddle_digits(n, om % F.FR_MOD)
+                                       for om, _ in transforms]), device=device)
     scales = [sc % F.FR_MOD for _, sc in transforms]
     scale = None
     if any(sc != 1 for sc in scales):
-        scale = torch.as_tensor(FT.ints_to_limbs(scales), device=device)
-    return x, y, z, tw, scale
+        scale = torch.as_tensor(EK.scalar_digits(scales), device=device)
+    return x, y, z, digits, scale
 
 
 def jacobian_to_affine(x, y, z) -> list[list]:

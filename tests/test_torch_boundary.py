@@ -193,9 +193,9 @@ def test_incremental_rounds_build_on_the_artifacts_device(monkeypatch):
         assert got.value.args == (torch.device("cuda", 0),)
 
 
-def _fake_cuda(shape):
+def _fake_cuda(shape, dtype=FT.DTYPE):
     """A stand-in for a CUDA tensor (this torch build cannot make one)."""
-    return SimpleNamespace(shape=torch.Size(shape), dtype=FT.DTYPE,
+    return SimpleNamespace(shape=torch.Size(shape), dtype=dtype,
                            device=torch.device("cuda", 0), dim=lambda: len(shape))
 
 
@@ -236,7 +236,8 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
         MK.segmented_scan(pts, pts, flags, flags, 16)
     coords = _fake_cuda((16, 2, 8))
     with pytest.raises(RuntimeError):
-        EK.ec_fft(coords, coords, coords, _fake_cuda((16, 2, 7)), _fake_cuda((16, 2)))
+        EK.ec_fft(coords, coords, coords, _fake_cuda((2, 7, 2, EK.DIGITS), torch.int8),
+                  _fake_cuda((2, 2, EK.DIGITS), torch.int8))
 
 
 def test_wrappers_reject_other_devices():

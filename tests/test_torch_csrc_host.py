@@ -30,6 +30,7 @@ from circuits_halo2_tpu.ops import curve as C
 from circuits_halo2_tpu.ops import field as F
 from circuits_halo2_tpu_torch import native
 from circuits_halo2_tpu_torch.ops import curve as TC
+from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
 from circuits_halo2_tpu_torch.ops import field_torch as FT
 from circuits_halo2_tpu_torch.ops import ntt as NTT
 from circuits_halo2_tpu_torch.ops import msm as TM
@@ -116,6 +117,17 @@ static void model_warp(uint32_t r[32][8], const uint32_t* t, const uint32_t* wb)
     }
 }
 
+// An X4 pass as the card runs it: blocks of X4_BLOCK threads in turn, each
+// thread's part before the pair meets, then each thread's part after it,
+// on the block's shared memory.
+template <class Half, class Finish> static void x4_blocks(long threads, Half half, Finish finish) {
+    std::vector<uint32_t> sm((size_t)X4_SLOTS * 24 * X4_BLOCK);
+    for (long b0 = 0; b0 < threads; b0 += X4_BLOCK) {
+        for (int i = 0; i < X4_BLOCK && b0 + i < threads; ++i) half(sm.data(), i, b0 + i);
+        for (int i = 0; i < X4_BLOCK && b0 + i < threads; ++i) finish(sm.data(), i, b0 + i);
+    }
+}
+
 int main(int argc, char** argv) {
     std::string mode = argv[1];
     int L = atoi(argv[2]);
@@ -195,14 +207,31 @@ int main(int argc, char** argv) {
                 g1::scalar_mul(o, o + 8, o + 16, a, a + 8, a + 16, a + 24);
         }
         fwrite(out.data(), 4, out.size(), stdout);
-    } else if (mode == "ec_fft") {  // L transforms of n points: state, twiddles, scales
+    } else if (mode == "ec_fft") {  // L transforms of n points, nd digits a GLV half
+        const int nd = atoi(argv[4]);
         auto st = take<uint32_t>((size_t)24 * L * n);
-        auto tw = take<uint32_t>((size_t)8 * L * (n - 1));
-        auto sc = take<uint32_t>((size_t)8 * L);
+        auto dg = take<int8_t>((size_t)L * (n - 1) * 2 * nd);
+        auto sd = take<int8_t>((size_t)L * 2 * nd);
+        auto beta = take<uint32_t>(8);
         for (int s = 0; ((long)2 << s) <= n; ++s)
-            for (long t = 0; t < L * n / 2; ++t) ec_fft_butterfly(st.data(), tw.data(), n, L, s, t);
-        for (long q = 0; q < L * n; ++q) ec_fft_scale_point(st.data(), sc.data(), n, L, q);
+            x4_blocks(L * n, [&](uint32_t* sm, int i, long gt) {
+                x4_stage_half(sm, i, st.data(), dg.data(), beta.data(), n, L, s, nd, gt);
+            }, [&](uint32_t* sm, int i, long gt) {
+                x4_stage_finish(sm, i, st.data(), n, L, s, gt);
+            });
+        x4_blocks(2 * L * n, [&](uint32_t* sm, int i, long gt) {
+            x4_scale_half(sm, i, st.data(), sd.data(), beta.data(), n, L, nd, gt);
+        }, [&](uint32_t* sm, int i, long gt) {
+            x4_scale_finish(sm, i, st.data(), n, L, gt);
+        });
         fwrite(st.data(), 4, st.size(), stdout);
+    } else if (mode == "phi") {  // n points of a (3, 8, n) state, then beta
+        auto st = take<uint32_t>((size_t)24 * n);
+        auto beta = take<uint32_t>(8);
+        std::vector<uint32_t> out(st.size());
+        for (long q = 0; q < n; ++q)
+            x4_load(g1::PointRef{out.data() + q, n}, st.data(), n, q, beta.data(), true);
+        fwrite(out.data(), 4, out.size(), stdout);
     } else if (mode == "canon") {  // n values V < 2^268 of 9 words -> V mod p, then the quotients
         auto v = take<uint32_t>((size_t)9 * n);
         std::vector<uint32_t> out((size_t)9 * n);
@@ -238,8 +267,8 @@ def harness(tmp_path_factory):
     return exe
 
 
-def _run(exe, mode, L, n, payload: bytes, dtype=np.int32) -> np.ndarray:
-    out = subprocess.run([str(exe), mode, str(L), str(n)], input=payload,
+def _run(exe, mode, L, n, payload: bytes, dtype=np.int32, *extra) -> np.ndarray:
+    out = subprocess.run([str(exe), mode, str(L), str(n), *map(str, extra)], input=payload,
                          capture_output=True, check=True, timeout=300).stdout
     return np.frombuffer(out, dtype=dtype).copy()
 
@@ -561,18 +590,71 @@ def test_double_and_add_thread_code(harness):
     assert got[0] is None and got[4] is None and got[3] == TC.g1_neg(pts[3])
 
 
-def _ec_fft_thread_code(exe, points, transforms):
-    """X4's butterflies and scale pass, thread by thread, on the inputs the
-    wrapper hands the kernel (``utils/ec_fft.transform_inputs``)."""
-    x, y, z, tw, scale = EC.transform_inputs(points, transforms, "cpu")
+def _beta_words() -> bytes:
+    return _mont_words([EK.BETA]).tobytes()
+
+
+def _x4_thread_code(exe, x, y, z, digits, scale):
+    """X4's stages and scale pass, pair by pair (``csrc/ec_fft.cu``), on the
+    arguments of ``ops/ec_fft_kernel.ec_fft``; the (3, 8, B, n) state out."""
     nb, n = x.shape[1], x.shape[2]
     if scale is None:
-        scale = torch.as_tensor(FT.ints_to_limbs([1] * nb))
+        scale = torch.as_tensor(EK.scalar_digits([1] * nb))
     state = torch.stack([FT.limbs_to_words(c, 0) for c in (x, y, z)])
-    payload = b"".join(t.numpy().tobytes() for t in (
-        state, FT.limbs_to_words(tw, 0), FT.limbs_to_words(scale, 0)))
-    out = torch.as_tensor(_run(exe, "ec_fft", nb, n, payload).reshape(3, 8, nb, n))
+    payload = b"".join(t.numpy().tobytes() for t in (state, digits, scale)) + _beta_words()
+    out = _run(exe, "ec_fft", nb, n, payload, np.int32, EK.DIGITS)
+    return torch.as_tensor(out.reshape(3, 8, nb, n))
+
+
+def _ec_fft_thread_code(exe, points, transforms):
+    """X4 on the inputs the wrapper hands the kernel
+    (``utils/ec_fft.transform_inputs``), as affine points."""
+    out = _x4_thread_code(exe, *EC.transform_inputs(points, transforms, "cpu"))
     return EC.jacobian_to_affine(*(FT.words_to_limbs(out[c], 0) for c in range(3)))
+
+
+def _jacobian_state(jac) -> np.ndarray:
+    """Plain Jacobian int triples -> the (3, 8, n) Montgomery word state."""
+    return np.stack([_mont_words([p[c] for p in jac]).T for c in range(3)])
+
+
+def test_phi_thread_code_is_lambda(harness):
+    """X4's load with phi, (BETA X, Y, Z), at Z != 1 and at infinity: the
+    affine point is [LAMBDA] P (ops/curve), and BETA and LAMBDA are cube
+    roots of unity."""
+    rng = random.Random(29)
+    pts = native.g1_fixed_base_muls(C.G1_GEN, [rng.randrange(1, F.FR_MOD) for _ in range(6)])
+    pts[2] = None
+    jac = [_jacobian(p, rng.randrange(1, Q)) for p in pts]
+    out = _run(harness, "phi", 0, len(pts), _jacobian_state(jac).tobytes() + _beta_words())
+    got = _points_out(out.view(np.uint32).reshape(3, 8, -1).transpose(2, 0, 1).reshape(-1, 24))
+    assert got == [None if p is None else TC.g1_mul(p, EK.LAMBDA) for p in pts]
+    assert pow(EK.BETA, 3, Q) == 1 != EK.BETA and pow(EK.LAMBDA, 3, F.FR_MOD) == 1 != EK.LAMBDA
+
+
+def test_glv_window_mul_thread_code(harness):
+    """X4's scale pass as a GLV multiply (one point a transform, each its own
+    scalar): k in {0, 1, 2, r - 1, LAMBDA, r - LAMBDA, 2^253} and random, of
+    points at Z != 1 and of infinity, gives k P (ops/curve) and the plain
+    torch ``glv_mul_ref``'s limbs."""
+    rng = random.Random(31)
+    r = F.FR_MOD
+    scalars = [0, 1, 2, r - 1, EK.LAMBDA, r - EK.LAMBDA, 1 << 253]
+    scalars += [rng.randrange(r) for _ in range(7)] + [5, r - 2]
+    pts = native.g1_fixed_base_muls(C.G1_GEN, [rng.randrange(1, r) for _ in scalars])
+    pts[9] = pts[-1] = None
+    jac = [_jacobian(p, rng.randrange(1, Q)) for p in pts]
+    cols = [torch.as_tensor(FT.to_mont_limbs([p[c] for p in jac], FT.FQ)).unsqueeze(-1)
+            for c in range(3)]
+    digits = torch.as_tensor(EK.scalar_digits(scalars))
+    out = _x4_thread_code(harness, *cols, torch.zeros(len(pts), 0, 2, EK.DIGITS, dtype=torch.int8),
+                          digits)
+    got = tuple(FT.words_to_limbs(out[c], 0) for c in range(3))
+    affine = EC.jacobian_to_affine(*(c.reshape(16, 1, -1) for c in got))[0]
+    assert affine == [None if p is None else TC.g1_mul(p, k) for p, k in zip(pts, scalars)]
+    want = EK.glv_mul_ref(tuple(c[..., 0] for c in cols), digits)
+    for g, w in zip(got, want):
+        assert torch.equal(g[..., 0], w)
 
 
 def test_ec_fft_thread_code_matches_host(harness):

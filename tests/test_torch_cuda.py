@@ -238,7 +238,31 @@ def test_x4_matches_plain(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [8, 11])
+@pytest.mark.parametrize("n", [2, 16])
+def test_x4_two_thread_combine_matches_plain(dev, n):
+    """Each butterfly's two threads (GLV halves of its twiddle, summed through
+    shared memory) and the scale pass's pairs, with an infinity lane, a batch
+    of three transforms whose scales have both halves nonzero, a negative
+    half, or a zero second half: equal to the plain version, one launch a
+    stage and one for the scale."""
+    rng = np.random.default_rng(n)
+    points = native.g1_fixed_base_muls(G1_GEN, _fr(rng, n))
+    points[n // 2] = None
+    omega = F.fr_pow(F.FR_ROOT_OF_UNITY, 1 << (F.FR_TWO_ADICITY + 1 - n.bit_length()))
+    scales = [EK.LAMBDA + 12345, F.fr_inv(n), FR_MOD - 1]
+    assert [EK.glv_split(k) for k in scales[::2]] == [(12345, 1), (-1, 0)]
+    assert EK.glv_split(scales[1])[0] < 0 < EK.glv_split(scales[1])[1]
+    transforms = [(omega, scales[0]), (F.fr_inv(omega), scales[1]), (omega, scales[2])]
+    args = EC.transform_inputs(points, transforms, dev)
+    before = EK.ec_fft.launches
+    got = EK.ec_fft(*args)
+    assert EK.ec_fft.launches == before + n.bit_length()
+    for g, w in zip(got, EK.ec_fft_ref(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 11, 13])
 def test_x4_lagrange_bases_match_analytic(dev, k):
     """``g_to_lagrange`` through X4 (2^k >= DEVICE_MIN) gives the setup's
     analytic Lagrange bases."""

@@ -3,11 +3,12 @@ tests/test_curve_msm.py:103-109 mirrored): the host EC-FFT, the Lagrange
 bases of ``g_to_lagrange``, ``downsize`` and its X^3 commitment,
 ``commit`` and ``commit_lagrange``, the upsize error,
 ``generate_setup_artifacts`` from a file larger than 2^k, X4's twiddle table,
-and X4's plain torch version (``ec_fft_device`` on the CPU) on an infinity
+its GLV split and signed digits, and X4's plain torch version (``ec_fft_device`` on the CPU) on an infinity
 lane, forward and scaled inverse. Tolerance: exact."""
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -117,10 +118,39 @@ def test_ec_fft_plain_torch_matches_host():
 
 def test_twiddle_table_stages():
     n, omega = 8, NTT.omega_for_k(3)
-    table = EK.twiddle_table(n, omega)
-    ints = [sum(int(table[i, j]) << (16 * i) for i in range(16)) for j in range(n - 1)]
     want = []
     for s in range(3):
         step = F.fr_pow(omega, n >> (s + 1))
         want += [F.fr_pow(step, j) for j in range(1 << s)]
-    assert ints == want
+    assert EK.twiddles(n, omega) == want
+
+
+def _special_scalars():
+    r = F.FR_MOD
+    return [0, 1, 2, r - 1, EK.LAMBDA, r - EK.LAMBDA, 1 << 253, r - (1 << 200)]
+
+
+@pytest.mark.parametrize("case", ["special", "twiddles_2^13", "n_inv_k1..20"])
+def test_glv_split_and_digits(case):
+    """Every scalar X4 multiplies by splits as k1 + LAMBDA k2 = k (mod r)
+    with |k1|, |k2| < 2^HALF_BITS (what DIGITS digits hold), and its signed
+    digits lie in [-8, 8] and sum back to both halves: the special scalars,
+    every twiddle of n = 2^13 (forward and inverse) and n^-1 at k = 1..20."""
+    r = F.FR_MOD
+    if case == "special":
+        scalars = _special_scalars()
+    elif case == "twiddles_2^13":
+        omega = NTT.omega_for_k(13)
+        scalars = EK.twiddles(1 << 13, omega) + EK.twiddles(1 << 13, F.fr_inv(omega))
+    else:
+        scalars = [F.fr_inv(1 << k) for k in range(1, 21)]
+    halves = [EK.glv_split(k) for k in scalars]
+    for k, (k1, k2) in zip(scalars, halves):
+        assert (k1 + EK.LAMBDA * k2 - k) % r == 0
+        assert max(abs(k1), abs(k2)) <= EK.HALF_BOUND < 1 << EK.HALF_BITS
+    digits = EK.scalar_digits(scalars).astype(np.int64)
+    assert digits.shape == (len(scalars), 2, EK.DIGITS) and np.abs(digits).max() <= EK.TABLE
+    weights = [16 ** i for i in range(EK.DIGITS)]
+    for row, (k1, k2) in zip(digits.tolist(), halves):
+        assert [sum(d * w for d, w in zip(half, weights)) for half in row] == [k1, k2]
+    assert EK.glv_split(1) == (1, 0) and EK.glv_split(EK.LAMBDA) == (0, 1)
