@@ -6,7 +6,7 @@ Builds the port's CUDA kernels from ``circuits_halo2_tpu_torch/csrc``,
 checks each of the seven (K1-K6 and X4, the EC-FFT) against its plain
 torch version on the card (X4 at the path's 2^10 and 2^13 in two child
 processes, beside the other checks; at 2^16, where the card is full, against
-setup(16)'s analytic Lagrange bases), then drives six paths through their user
+setup(16)'s analytic Lagrange bases), then drives seven paths through their user
 entry points, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -59,6 +59,13 @@ just after:
   rejected); then a 1-rank NCCL world whose sharded NTT (2^15, batch 4)
   and commitment (2^13 lanes) equal the single-device results. The
   ranks' launches count toward the path's;
+- the port's bench entry points (K1, K3), each a child process:
+  ``python -m circuits_halo2_tpu_torch.bench_suite`` at its quick stages
+  (the 2^16 tree, MSM 2^13 x 4, NTT 2^15, keygen, prove and verify at
+  k=11 with one warm repeat; the k=11 proof equal to the JAX package's
+  bytes, the prove profiled), started beside the incremental path and
+  joined here, and the headline ``python -m circuits_halo2_tpu_torch.bench``
+  alone; their lines' launches count toward the path's;
 - the Poseidon engine at the criterion width: the 2^20 tree's root
   through the tensor-core sponge (K4) from raw digests and sums, equal to
   the host root; the bare permutation (K2) of the leaf states; and the
@@ -151,11 +158,10 @@ class Phase:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
+    """``nvidia-smi``'s name and power limit of card 0."""
+    from circuits_halo2_tpu_torch.bench_suite import card_line as line
+
+    return line(0)
 
 
 def cuda_ms(fn, iters: int, warm: bool = True) -> float:
@@ -567,21 +573,11 @@ def poseidon_engine(device, digests, balances, host_root):
 
 
 def host_tree_root(digests: np.ndarray, balances: np.ndarray):
-    """Root of the tree of (digest, balances) leaves, any number of
-    currencies, by the native host sponge."""
-    from circuits_halo2_tpu_torch import native
-    from circuits_halo2_tpu_torch.ops.field_torch import FR
+    """Root of the tree of (digest, balances) leaves by the native host
+    sponge (``bench_suite.host_tree_root``)."""
+    from circuits_halo2_tpu_torch.bench_suite import host_tree_root as root
 
-    FR_MOD = FR.mod_int
-    users = [int.from_bytes(d.tobytes(), "big") % FR_MOD for d in digests]
-    sums = [[int(b) for b in balances[:, c]] for c in range(balances.shape[1])]
-    hashes = native.poseidon_hash_batch(list(zip(users, *sums)), 1 + len(sums))
-    while len(hashes) > 1:
-        sums = [[s[i] + s[i + 1] for i in range(0, len(s), 2)] for s in sums]
-        hashes = native.poseidon_hash_batch(
-            [(*(s[i] % FR_MOD for s in sums), hashes[2 * i], hashes[2 * i + 1])
-             for i in range(len(hashes) // 2)], 2 + len(sums))
-    return hashes[0], [s[0] % FR_MOD for s in sums]
+    return root(digests, balances)
 
 
 def first_difference(got: str, want: str) -> str:
@@ -1392,6 +1388,77 @@ def northstar(device):
         synthetic_proofs(art, fix, "north-star")
 
 
+BENCH_STAGES = "build,msm,ntt,keygen,prove,verify"  # the quick stages; the full run is separate
+BENCH_METRICS = ("mst_build_2^16", "mst_build_sorted_2^16", "msm_pippenger_2^13x4", "ntt_2^15",
+                 "keygen_vk_pk_k11", "prove_mst_inclusion_k11", "verify_mst_inclusion_k11")
+
+
+BENCH_SUITE = ("circuits_halo2_tpu_torch.bench_suite",
+               {"BENCH_STAGES": BENCH_STAGES, "BENCH_REPEATS": "1"}, BENCH_METRICS)
+BENCH_HEADLINE = ("circuits_halo2_tpu_torch.bench", {}, ("poseidon_bn254_hashes_per_sec",))
+
+
+def start_bench_suite(spawn):
+    """Start ``bench_suite`` at its quick stages with one warm repeat
+    (default sizes: the 2^16 tree, MSM 2^13 x 4, NTT 2^15, and keygen,
+    prove and verify at k=11, whose Blake2b proof must equal the JAX
+    package's bytes) in a child process, its output to a file. It runs
+    beside the incremental path, which is host-bound, so its times are not
+    measurements (the full run is separate); ``bench`` joins it."""
+    import os
+
+    from circuits_halo2_tpu_torch import build
+
+    module, env, _ = BENCH_SUITE
+    out = build.build_dir() / "bench_suite.log"
+    with out.open("w") as f:
+        proc = spawn([sys.executable, "-m", module], env=os.environ | env, stdout=f)
+    return proc, out
+
+
+def bench(spawn, card, suite) -> dict:
+    """The port's bench entry points: joins ``suite`` (``start_bench_suite``),
+    then runs the headline ``bench`` at its default batch in a child process
+    started by ``spawn``. Each must exit 0 (every gate held) and print its
+    metrics; the prove line must carry its profile. Returns the K1 and K3
+    launches of their lines."""
+    import os
+
+    lines = []
+    for (module, env, metrics), started in ((BENCH_SUITE, suite), (BENCH_HEADLINE, None)):
+        flags = " ".join(f"{key}={value}" for key, value in env.items())
+        how = "started before the incremental path; waiting for it" if started else "child process"
+        with Phase(f"bench: {f'{flags} ' if flags else ''}python -m {module} ({how})"):
+            if started:
+                proc, path = started
+                proc.wait(timeout=900)
+                out = path.read_text().splitlines()
+            else:
+                proc = spawn([sys.executable, "-m", module], env=os.environ | env)
+                out = proc.communicate(timeout=600)[0].splitlines()
+            got = [json.loads(line) for line in out if line.startswith('{"metric"')]
+            for line in out:
+                if not line.startswith('{"metric"'):
+                    log(f"  {module}: {line}")
+            for line in got:
+                log(json.dumps(line))
+            require(proc.returncode == 0, f"{module} exited with {proc.returncode}")
+            missing = set(metrics) - {line["metric"] for line in got}
+            require(not missing, f"{module} printed no line for {sorted(missing)}")
+            lines += got
+    by_metric = {line["metric"]: line for line in lines}
+    require(by_metric["verify_mst_inclusion_k11"]["ok"] is True, "the bench's k=11 proof failed")
+    prove = by_metric["prove_mst_inclusion_k11"]
+    require("idle_share" in prove or prove.get("profiler") == "no device events",
+            "the bench's prove line has no profile")
+    log(f"bench: every gate held; k=11 prove {prove['value']:.3f} s (traced "
+        f"{prove['traced_s']:.3f} s; beside the incremental path), idle share "
+        f"{prove.get('idle_share')}, {prove.get('launches')} CUDA kernels; headline "
+        f"{by_metric['poseidon_bn254_hashes_per_sec']['value']:.1f} hashes/s ({card})")
+    return {"k1": sum(line["k1_launches"] for line in lines),
+            "k3": sum(line["k3_launches"] for line in lines)}
+
+
 def timings(device, rng, card, probes, report):
     """Kernel vs plain torch at the paths' shapes (CUDA events, mean of 5
     warm launches, X4 of 3; plain torch one launch), each with its bound."""
@@ -1696,6 +1763,9 @@ def run(spawn) -> int:
     round_digests = []  # the round's username digests, which the incremental path reuses
     counted("operator-round", ("k1", "k3"),
             lambda: round_digests.append(operator_round(device, card)))
+    # the bench's quick stages run beside the incremental path (host-bound)
+    # and are joined at the bench path
+    suite = start_bench_suite(spawn)
     counted("incremental", ("k1", "k3"), lambda: incremental(device, card, round_digests[0]))
     with Phase(f"example {EXAMPLE} (child process; waiting for it)"):
         out = example.communicate(timeout=900)[0].strip().splitlines()
@@ -1706,6 +1776,7 @@ def run(spawn) -> int:
             f"started ({card})")
     counted("parallel", ("k1", "k3"),
             lambda: parallel(spawn, card, art, digests, balances, host_root))
+    counted("bench", ("k1", "k3"), lambda: bench(spawn, card, suite))
 
     for key in ("k2", "k4", "k5", "k6"):
         wrappers[key].launches = 0

@@ -150,12 +150,21 @@ def keccak256(data: bytes) -> bytes:
     return out.tobytes()
 
 
+def poseidon_hash_bytes(msgs: np.ndarray, length: int) -> np.ndarray:
+    """(n·L, 32) uint8 little-endian canonical scalars, L a message ->
+    (n, 32) ConstantLength<L> Poseidon digests, on all host threads."""
+    if msgs.dtype != np.uint8 or msgs.ndim != 2 or msgs.shape[1] != 32 or msgs.shape[0] % length:
+        raise ValueError(f"poseidon_hash_bytes wants (n*{length}, 32) uint8, got "
+                         f"{msgs.shape} {msgs.dtype}")
+    msgs = np.ascontiguousarray(msgs)
+    n = msgs.shape[0] // length
+    out = np.empty((n, 32), dtype=np.uint8)
+    if get().poseidon_hash_batch(_u8(msgs), n, length, _u8(out)) != 0:
+        raise RuntimeError("poseidon_hash_batch: constants not initialised")
+    return out
+
+
 def poseidon_hash_batch(msgs, length: int) -> list[int]:
     """(n, L) canonical scalars -> n ConstantLength<L> Poseidon digests."""
     flat = [int(v) for row in msgs for v in row]
-    inp = scalars_to_bytes(flat)
-    n = len(flat) // length
-    out = np.empty((n, 32), dtype=np.uint8)
-    if get().poseidon_hash_batch(_u8(inp), n, length, _u8(out)) != 0:
-        raise RuntimeError("poseidon_hash_batch: constants not initialised")
-    return bytes_to_scalars(out)
+    return bytes_to_scalars(poseidon_hash_bytes(scalars_to_bytes(flat), length))

@@ -124,7 +124,14 @@ def setup_cached(k: int) -> ParamsKZG:
     if path.exists():
         return ParamsKZG.read(str(path))
     params = ParamsKZG.setup(k)
+    store_cached(params)
+    return params
+
+
+def store_cached(params: ParamsKZG) -> None:
+    """Write ``params`` where ``setup_cached(params.k)`` reads it (atomically:
+    concurrent writers race safely)."""
+    path = cached_path(params.k)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     params.write(str(tmp))
     tmp.replace(path)
-    return params

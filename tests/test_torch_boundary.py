@@ -43,8 +43,10 @@ import torch_parallel_tasks
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "circuits_halo2_tpu"))
 mesh = {"circuits_halo2_tpu_torch.parallel." + m
         for m in ("auto", "sharding", "msm_sharded", "ntt_sharded", "worker")}
-print(len(names), bad, sorted(mesh - set(names)))
-sys.exit(1 if bad or len(names) < 20 or not mesh <= set(names) else 0)
+bench = {"circuits_halo2_tpu_torch.bench", "circuits_halo2_tpu_torch.bench_suite"}
+need = mesh | bench
+print(len(names), bad, sorted(need - set(names)))
+sys.exit(1 if bad or len(names) < 20 or not need <= set(names) else 0)
 """
 
 
