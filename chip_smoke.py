@@ -3,14 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``circuits_halo2_tpu_torch/csrc``,
-checks each of the seven (K1-K6 and X4, the EC-FFT) against its plain
-torch version on the card (X4 at the path's 2^10 and 2^13 in two child
-processes, beside the other checks; at 2^16, where the card is full, against
-setup(16)'s analytic Lagrange bases), then drives seven paths through their user
-entry points, each with the launch counts set to 0 just before it and read
-just after:
+checks each of the eleven (K1-K6, X4 the EC-FFT, X0a-X0c the field
+arithmetic and X1 the NTT stage) against its plain torch version on the
+card (X4 at the path's 2^10 and 2^13 in two child processes, beside the
+other checks; at 2^16, where the card is full, against setup(16)'s
+analytic Lagrange bases; X0 and X1 at the prover's shapes, their plain
+versions run inside ``field_torch.plain()``), then drives seven paths
+through their user entry points, each with the launch counts set to 0
+just before it and read just after:
 
-- the proving path (K1, K3 and X4):
+- the proving path (K1, K3, X4, X0a-X0c and X1):
   - the reference criterion config (a 2^20-entry Merkle sum tree,
     N_CURRENCIES=1, N_BYTES=8, LEVELS=20, k=13): the tree, its sorted
     build, keygen, a proof that verifies, and the proofs of the JAX
@@ -25,18 +27,18 @@ just after:
   - the north-star config (2^16 entries, 2 currencies, N_BYTES=8,
     LEVELS=16, k=17): tree, keygen, a proof that verifies, and, where the
     fixture has them, the JAX package's north-star proofs byte for byte;
-- the batch prover (K3) on the criterion key: one prove traced phase by
+- the batch prover (K3, X0, X1) on the criterion key: one prove traced phase by
   phase, users 0-3 proved one at a time, then users 0-7 by
   ``prove_batch`` at U=4 and U=8 (each batch proof equal byte for byte to
   the single proof, or to the other batch size's), and users 0-1 with
   Blake2b at U=2 (user 0 equal to the criterion proof); proofs per minute
   and peak memory;
-- the operator's round at the criterion width (K1, K3): a 2^20-entry
+- the operator's round at the criterion width (K1, K3, X0, X1): a 2^20-entry
   ``MerkleSumTree.from_entries`` (root equal to ``build_device_tree``'s),
   ``Round`` on a k=13 SRS file, the ownership proofs, the commitment, two
   users' inclusion proofs with the user-side checks, and the verifier
   generated from the VK accepting both in the Yul VM;
-- the incremental inclusion chain (K1, K3): at the reference example's
+- the incremental inclusion chain (K1, K3, X0, X1): at the reference example's
   size (entry_16 rounds 1-3) the step chain at k=11 and the chained SNARK
   at k=13 equal to the JAX package's bytes
   (tests/fixtures_torch_incremental.json); at the criterion width three
@@ -48,7 +50,7 @@ just after:
 - the recursion example (``examples/nova_incremental_verifier``: the
   circom-parity chain, the k=11 step chain on the card, NIFS folding and
   Spartan compression) in a child process started after the kernel build;
-- the rank mesh (``parallel/*``; K1, K3), each rank a child process of
+- the rank mesh (``parallel/*``; K1, K3, X0, X1), each rank a child process of
   ``parallel/worker.launch``: a 4-rank gloo world on the one card (asked
   for explicitly; its collectives staged through host memory, since NCCL
   refuses two ranks on one GPU) whose every rank hashes and reduces the
@@ -134,6 +136,8 @@ K3_BYTES = 2 * 16 * 8 + 8 + 1 + 3 * 16 * 8
 DBL_WIDE = 2 * MUL + 5 * SQR
 ADD_WIDE = 11 * MUL + 5 * SQR
 X4_BIG = 16  # X4's exact check at full width: g_to_lagrange of setup(16)'s bases
+# X0 and X1 read and write the port's int64 limbs: 128 bytes an element
+LIMB_FE = 16 * 8
 
 
 def log(msg: str) -> None:
@@ -211,11 +215,15 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def random_mod(rng: np.random.Generator, count: int, mod: int) -> list[int]:
+    raw = rng.integers(0, 256, size=(count, 32), dtype=np.uint8)
+    return [int.from_bytes(r.tobytes(), "little") % mod for r in raw]
+
+
 def random_fr(rng: np.random.Generator, count: int) -> list[int]:
     from circuits_halo2_tpu_torch.ops.field_torch import FR
 
-    raw = rng.integers(0, 256, size=(count, 32), dtype=np.uint8)
-    return [int.from_bytes(r.tobytes(), "little") % FR.mod_int for r in raw]
+    return random_mod(rng, count, FR.mod_int)
 
 
 def sorted_scan_inputs(xs, ys, valid, scal_mont):
@@ -398,6 +406,128 @@ def check_x4(device, rng, report):
     log("X4 n=16 (forward and scaled inverse, infinity lane): equal to plain torch and to "
         "the host ec_fft")
     report["x4_err"] = err
+
+
+def mont_limbs(device, rng, shape, spec=None) -> torch.Tensor:
+    """(16, *shape) canonical Montgomery limbs of random elements, 0 and p - 1
+    first and last."""
+    from circuits_halo2_tpu_torch.ops import field_torch as FT
+
+    spec = spec or FT.FR
+    vals = random_mod(rng, int(np.prod(shape)), spec.mod_int)
+    vals[0], vals[-1] = 0, spec.mod_int - 1
+    return torch.as_tensor(FT.to_mont_limbs(vals, spec), device=device).reshape((16,) + shape)
+
+
+def check_x0_x1(device, report):
+    """X0a-X0c and X1 against their plain versions on the card, limb for limb,
+    at the path's shapes: X0a on k=13 columns (16, 1, 8, 2^13) x a (16, 1,
+    1, 2^13) lane table, on a strided column view x a challenge, on raw
+    limbs (to_mont), at k=17's extended width 2^19, and on Fq at an MSM's
+    (16, 3, 2^13); X0b's three op codes on the k=13 operands; X0c (the
+    Fermat inversion) on batch_inv_dev's (16, 1, 3, 1) and on 2^16
+    elements with zeros; X1 through ntt and intt at 2^13 (a batch of 4) and
+    2^17. The plain versions run inside ``FT.plain()``."""
+    from circuits_halo2_tpu_torch.ops import field_torch as FT
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
+
+    rng = np.random.default_rng(SEED + 12)
+
+    def same(key, fn, what):
+        got = fn()
+        with FT.plain():
+            want = fn()
+        err = max_abs_err([got], [want])
+        require(err == 0 and torch.equal(got, want), f"{key.upper()} differs from its plain "
+                f"version at {what}")
+        report[f"{key}_err"] = max(report.get(f"{key}_err", 0), err)
+
+    n13 = 1 << 13
+    cols, lanes = mont_limbs(device, rng, (1, 8, n13)), mont_limbs(device, rng, (1, 1, n13))
+    same("x0a", lambda: FT.mont_mul(cols, lanes), "k=13 columns x a lane table")
+    wide, chal = mont_limbs(device, rng, (1, 12, n13)), mont_limbs(device, rng, (1, 1, 1))
+    same("x0a", lambda: FT.mont_mul(wide[:, :, 2::3], chal), "a strided column view x a challenge")
+    raw = torch.as_tensor(rng.integers(0, 1 << 16, (16, 3, n13)), device=device)
+    same("x0a", lambda: FT.to_mont(raw), "to_mont of raw limbs (values up to 2^256 - 1)")
+    ext = mont_limbs(device, rng, (1, 2, 1 << 19))
+    same("x0a", lambda: FT.mont_mul(ext, ext[:, :, :1]), "k=17's extended width 2^19")
+    fq = [mont_limbs(device, rng, (3, n13), FT.FQ) for _ in range(2)]
+    same("x0a", lambda: FT.mont_mul(*fq, FT.FQ), "Fq (16, 3, 2^13)")
+    same("x0b", lambda: FT.add_mod(cols, lanes), "add, k=13 columns x a lane table")
+    same("x0b", lambda: FT.sub_mod(cols, lanes), "sub, k=13 columns x a lane table")
+    same("x0b", lambda: FT.neg_mod(cols), "neg, k=13 columns (0 among them)")
+    same("x0b", lambda: FT.sub_mod(fq[0], fq[1], FT.FQ), "sub, Fq")
+    for shape in ((1, 3, 1), (1 << 16,)):
+        z = mont_limbs(device, rng, shape)
+        same("x0c", lambda: FT.inv_mont(z), f"inv_mont {shape} (0 among them)")
+    for k, shape in ((13, (1, 4, n13)), (17, (1, 1, 1 << 17))):
+        a, omega = mont_limbs(device, rng, shape), NTT.omega_for_k(k)
+        same("x1", lambda: NTT.ntt(a, omega), f"ntt 2^{k}")
+        same("x1", lambda: NTT.intt(a, omega), f"intt 2^{k}")
+    log("X0a (Fr: lane table, strided view, raw limbs, 2^19; Fq), X0b (add, sub, neg), X0c "
+        "((16, 1, 3, 1), 2^16) and X1 (ntt, intt at 2^13 x 4 and 2^17): equal to plain torch")
+
+
+def x0_bound(wide_per_element: int, out: torch.Tensor, *inputs) -> tuple[float, str]:
+    """X0's least time: its wide multiplies on every output element, and the
+    int64 limbs of each input read once (an operand's own elements, not its
+    broadcast) and of the output written once."""
+    own = sum(int(np.prod([s for s, st in zip(x.shape[1:], x.stride()[1:]) if st]))
+              for x in inputs)
+    n = out[0].numel()
+    return bound_ms(n * wide_per_element, 0, LIMB_FE * (n + own))
+
+
+def pow_wide(exponent: int) -> int:
+    """X0c's wide multiplies an element: a squaring per bit, a product per set bit."""
+    return max(1, exponent.bit_length()) * SQR + bin(exponent).count("1") * MUL
+
+
+def x0_x1_timings(device, art, circuit, card) -> dict:
+    """X0a-X0c and X1 against their plain versions (CUDA events; kernel mean
+    of 5 warm calls, plain one call) at the k=13 prover's shapes: 8 columns
+    of its extended domain against a lane table, the inversion of three
+    grand-product denominators, and the coset NTT of those columns. Logs
+    each one's launches in one more k=13 prove first."""
+    from circuits_halo2_tpu_torch.ops import field_torch as FT
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
+    from circuits_halo2_tpu_torch.utils import pipeline
+    from circuits_halo2_tpu_torch.utils import poly_device as PD
+
+    wrappers = (FT.mont_mul, FT.linear, FT.mont_pow, NTT.dit_stages)
+    before = [w.launches for w in wrappers]
+    pipeline.full_prover(art, circuit, circuit.instances())
+    log("one k=13 prove: " + ", ".join(f"{key.upper()} {w.launches - b} launches"
+                                       for key, w, b in zip(X0_X1, wrappers, before)))
+
+    rng = np.random.default_rng(SEED + 13)
+    dom = PD.domain(CRITERION[3], art.pk.vk.cs.degree(), str(device))
+    n = dom.n_ext
+    cols, lanes = mont_limbs(device, rng, (1, 8, n)), mont_limbs(device, rng, (1, 1, n))
+    out = {}
+    prod = FT.mont_mul(cols, lanes)
+    out["x0a"] = [cuda_ms(lambda: FT.mont_mul(cols, lanes), 5),
+                  cuda_ms(lambda: FT.mont_mul_ref(cols, lanes), 1, warm=False),
+                  *x0_bound(MUL, prod, cols, lanes)]
+    out["x0b"] = [cuda_ms(lambda: FT.add_mod(cols, lanes), 5),
+                  cuda_ms(lambda: FT.add_mod_ref(cols, lanes), 1, warm=False),
+                  *x0_bound(0, prod, cols, lanes)]
+    z, e = mont_limbs(device, rng, (1, 3, 1)), FT.FR.mod_int - 2
+    out["x0c"] = [cuda_ms(lambda: FT.inv_mont(z), 5),
+                  cuda_ms(lambda: FT.mont_pow_ref(z, e), 1, warm=False),
+                  *x0_bound(pow_wide(e), z, z)]
+    logn = n.bit_length() - 1
+    out["x1"] = [cuda_ms(lambda: NTT.ntt(cols, dom.omega_ext), 5),
+                 cuda_ms(lambda: NTT.ntt_ref(cols, dom.omega_ext), 1, warm=False),
+                 *bound_ms(8 * logn * (n // 2) * MUL, 0, LIMB_FE * (2 * 8 * n + n - 1))]
+    for key, what in (("x0a", f"mont_mul (16, 1, 8, 2^{logn}) x (16, 1, 1, 2^{logn})"),
+                      ("x0b", f"add_mod (16, 1, 8, 2^{logn}) x (16, 1, 1, 2^{logn})"),
+                      ("x0c", "inv_mont (16, 1, 3, 1)"),
+                      ("x1", f"ntt (16, 1, 8, 2^{logn}), {logn} stages")):
+        ms, plain, bound, by = out[key]
+        log(f"{key.upper()} {what}: kernel {ms:.4f} ms, plain torch {plain:.3f} ms, bound "
+            f"{bound:.4f} ms ({by}) ({card})")
+    return out
 
 
 def x4_ceremony(device) -> dict:
@@ -1137,6 +1267,7 @@ def parallel_rank(mesh, leaves: str, root: str, sums: list, fixed: list,
     from circuits_halo2_tpu_torch.models.mst_inclusion import MstInclusionCircuit
     from circuits_halo2_tpu_torch.ops import field_torch as FT
     from circuits_halo2_tpu_torch.ops import msm_kernel as MK
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
     from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
     from circuits_halo2_tpu_torch.parallel import auto, sharding
     from circuits_halo2_tpu_torch.utils import pipeline
@@ -1176,7 +1307,9 @@ def parallel_rank(mesh, leaves: str, root: str, sums: list, fixed: list,
             "package's: " + first_difference(proof, fix["keccak_proof"]))
     verify_and_flip(art, bytes.fromhex(proof), circuit.instances(), name, KeccakTranscript)
     return {"rank": mesh.rank, "k1": PK.hash_batch.launches, "k3": MK.segmented_scan.launches,
-            "seconds": seconds, "sharded": mesh.sharded, "collectives": mesh.stats.calls,
+            "x0a": FT.mont_mul.launches, "x0b": FT.linear.launches,
+            "x0c": FT.mont_pow.launches, "x1": NTT.dit_stages.launches, "seconds": seconds,
+            "sharded": mesh.sharded, "collectives": mesh.stats.calls,
             "collective_bytes": mesh.stats.nbytes, "collective_seconds": mesh.stats.seconds}
 
 
@@ -1229,7 +1362,8 @@ def parallel(spawn, card, art, digests, balances, host_root) -> dict:
     """The mesh on the one card: a 4-rank gloo world (its collectives staged
     through host memory: NCCL refuses two ranks on one GPU) and a 1-rank
     NCCL world, each rank a child process of ``parallel/worker.launch``
-    started by ``spawn``. Returns the ranks' K1 and K3 launches."""
+    started by ``spawn``. Returns the gloo ranks' K1, K3, X0 and X1 launches
+    (and the NCCL rank's K3)."""
     from circuits_halo2_tpu_torch import build
     from circuits_halo2_tpu_torch.parallel import worker
 
@@ -1261,7 +1395,8 @@ def parallel(spawn, card, art, digests, balances, host_root) -> dict:
             f"{nccl['collectives']}, {nccl['collective_bytes']} B, "
             f"{nccl['collective_seconds']:.3f} s ({card})")
         log("NCCL rank: the sharded NTT and commitment == single-device results")
-    return {"k1": sum(r["k1"] for r in ranks), "k3": sum(r["k3"] for r in ranks) + nccl["k3"]}
+    return {"k1": sum(r["k1"] for r in ranks), "k3": sum(r["k3"] for r in ranks) + nccl["k3"],
+            **{key: sum(r[key] for r in ranks) for key in X0_X1}}
 
 
 def entry16(device):
@@ -1635,7 +1770,15 @@ KERNELS = (  # key, name, source, replaced TPU kernel
     ("k5", "poseidon_mxu_probe", "csrc/poseidon_mxu.cu", "scripts/exp_poseidon_mxu.py:180"),
     ("k6", "poseidon_mxu_check", "csrc/poseidon_mxu.cu", "scripts/exp_poseidon_mxu.py:224"),
     ("x4", "ec_fft", "csrc/ec_fft.cu", "circuits_halo2_tpu/utils/ec_fft.py:181 (XLA, no Pallas)"),
+    ("x0a", "field_mont_mul", "csrc/field_ops.cu",
+     "circuits_halo2_tpu/ops/field_jax.py:329 (XLA, no Pallas)"),
+    ("x0b", "field_add_sub_neg", "csrc/field_ops.cu",
+     "circuits_halo2_tpu/ops/field_jax.py:352 (XLA, no Pallas)"),
+    ("x0c", "field_pow", "csrc/field_ops.cu",
+     "circuits_halo2_tpu/ops/field_jax.py:397 (XLA, no Pallas)"),
+    ("x1", "ntt_stage", "csrc/field_ops.cu", "circuits_halo2_tpu/ops/ntt.py:177 (XLA, no Pallas)"),
 )
+X0_X1 = ("x0a", "x0b", "x0c", "x1")
 
 
 X4_CHILDREN = {  # argument of a child process: its X4 check
@@ -1678,7 +1821,9 @@ def run(spawn) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     from circuits_halo2_tpu_torch import build
     from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
+    from circuits_halo2_tpu_torch.ops import field_torch as FT
     from circuits_halo2_tpu_torch.ops import msm_kernel as MK
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
     from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
     from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
     from circuits_halo2_tpu_torch.scripts import exp_poseidon_mxu as EXP
@@ -1716,6 +1861,8 @@ def run(spawn) -> int:
         check_k5_k6(device, report)
     with Phase("X4 vs plain and the host EC-FFT"):
         check_x4(device, rng, report)
+    with Phase("X0a-X0c, X1 vs plain"):
+        check_x0_x1(device, report)
     with Phase(f"X4 at n=2^{X4_BIG} vs the analytic Lagrange bases"):
         x4_analytic(device, report)
     with Phase("X4 vs plain at n=2^10 and 2^13 (child processes; waiting for them)"):
@@ -1733,7 +1880,8 @@ def run(spawn) -> int:
             f"({report['x4'][3]})")
 
     wrappers = {"k1": PK.hash_batch, "k2": PK.permute, "k3": MK.segmented_scan,
-                "k4": PM.hash_batch_mxu, "k5": EXP.run, "k6": EXP.mxu_mul_once, "x4": EK.ec_fft}
+                "k4": PM.hash_batch_mxu, "k5": EXP.run, "k6": EXP.mxu_mul_once, "x4": EK.ec_fft,
+                "x0a": FT.mont_mul, "x0b": FT.linear, "x0c": FT.mont_pow, "x1": NTT.dit_stages}
     launches = {}
     for w in wrappers.values():
         w.launches = 0
@@ -1743,8 +1891,9 @@ def run(spawn) -> int:
     full_width_downsize(device, rng, circuit)
     northstar(device)
     launches.update(k1=PK.hash_batch.launches, k3=MK.segmented_scan.launches,
-                    x4=EK.ec_fft.launches)
-    log(f"proving-path launches: K1 {launches['k1']}, K3 {launches['k3']}, X4 {launches['x4']}")
+                    x4=EK.ec_fft.launches, **{key: wrappers[key].launches for key in X0_X1})
+    log("proving-path launches: " + ", ".join(f"{key.upper()} {launches[key]}"
+                                              for key in ("k1", "k3", "x4", *X0_X1)))
 
     def counted(name, kernels, run):
         """Drive one more path with every count set to 0; its kernels must
@@ -1758,15 +1907,16 @@ def run(spawn) -> int:
         for key in kernels:
             launches[key] += counts[key]
 
-    counted("batch-prover", ("k3",),
+    counted("batch-prover", ("k3", *X0_X1),
             lambda: batch_prover(device, art, tree, entries, blake2b_0, card))
     round_digests = []  # the round's username digests, which the incremental path reuses
-    counted("operator-round", ("k1", "k3"),
+    counted("operator-round", ("k1", "k3", *X0_X1),
             lambda: round_digests.append(operator_round(device, card)))
     # the bench's quick stages run beside the incremental path (host-bound)
     # and are joined at the bench path
     suite = start_bench_suite(spawn)
-    counted("incremental", ("k1", "k3"), lambda: incremental(device, card, round_digests[0]))
+    counted("incremental", ("k1", "k3", *X0_X1),
+            lambda: incremental(device, card, round_digests[0]))
     with Phase(f"example {EXAMPLE} (child process; waiting for it)"):
         out = example.communicate(timeout=900)[0].strip().splitlines()
         for line in out:
@@ -1774,7 +1924,7 @@ def run(spawn) -> int:
         require(example.returncode == 0, f"the example exited with {example.returncode}")
         log(f"example exited 0; joined {time.perf_counter() - example_t0:.1f} s after it was "
             f"started ({card})")
-    counted("parallel", ("k1", "k3"),
+    counted("parallel", ("k1", "k3", *X0_X1),
             lambda: parallel(spawn, card, art, digests, balances, host_root))
     counted("bench", ("k1", "k3"), lambda: bench(spawn, card, suite))
 
@@ -1789,6 +1939,7 @@ def run(spawn) -> int:
 
     with Phase("kernel vs plain timings"):
         times = timings(device, rng, card, probes, report)
+        times.update(x0_x1_timings(device, art, circuit, card))
     with Phase("repeat: time lost per kernel on its path"):
         lost_time(device, digests, balances, circuit, card)
     times["k1"], times["k4"] = times["k1_L2"], times["k4_L2"]

@@ -165,6 +165,7 @@ def phi(p):
     return FT.mont_mul(x, FT.const_tensor(FQ.const(BETA), x.device, x.dim()), FQ), y, z
 
 
+@FT.plain_version
 def window_mul_ref(p, digits: torch.Tensor):
     """[k] P per lane for k = sum_i digits[..., i] 16^i: P a Jacobian triple
     of (16, *lanes) tensors, digits (*lanes, DIGITS). The table T_m = mP
@@ -198,6 +199,7 @@ def window_mul_ref(p, digits: torch.Tensor):
     return acc
 
 
+@FT.plain_version
 def glv_mul_ref(p, digits: torch.Tensor):
     """[k] P per lane, k given by its (*lanes, 2, DIGITS) GLV digits: the
     two halves' products R_0 = [k1] P, R_1 = [k2] phi(P), then R_0 + R_1."""
@@ -206,6 +208,7 @@ def glv_mul_ref(p, digits: torch.Tensor):
     return M.jac_add(tuple(c[..., 0] for c in r), tuple(c[..., 1] for c in r))
 
 
+@FT.plain_version
 def ec_fft_ref(x, y, z, digits, scale=None):
     """Plain torch version of the whole transform (see the module docstring)."""
     lead, n = x.shape[:-1], x.shape[-1]

@@ -11,7 +11,16 @@ Montgomery form uses R = 2^256. Every public function takes and returns
 canonical limbs (< p); kernels choose their own layout and their wrappers
 convert at this boundary.
 
-The multiply never builds the (16, 16, *batch) outer product: product
+On a CUDA tensor the product (and ``mont_sqr``, ``to_mont``, ``from_mont``,
+``pow5``, which call it), add / sub / neg and the power chain of the Fermat
+inversion each launch one hand-written kernel of ``csrc/field_ops.cu``
+(X0a ``mont_mul``, X0b ``linear``, X0c ``mont_pow``), which reads the
+operands through their strides (a broadcast or strided view is never
+materialised) and writes a contiguous (16, *batch) result; a failed build
+or launch raises. On a CPU tensor, or inside ``plain()``, they run the
+plain versions (``*_ref``), which give the same limbs.
+
+The plain multiply never builds the (16, 16, *batch) outer product: product
 columns are accumulated one limb row at a time (``addcmul_``), and the
 Montgomery reduction runs limb-serially on the same 32-column buffer, so
 the working set is ~2x the output.
@@ -19,11 +28,15 @@ the working set is ~2x the output.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
 
+from .. import build
 from . import field as F
 
 NLIMBS = 16
@@ -171,10 +184,10 @@ def _reduce_once(raw: torch.Tensor, mod: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Arithmetic
+# Plain versions
 # ---------------------------------------------------------------------------
 
-def mont_mul(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
+def mont_mul_ref(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
     """Montgomery product a·b·2^-256 mod p on (16, *batch) limbs.
 
     One operand must be < p and the other < 2^256; the result is canonical."""
@@ -193,17 +206,13 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Te
     return _reduce_once(t[NLIMBS : 2 * NLIMBS], mod)
 
 
-def mont_sqr(a: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
-    return mont_mul(a, a, spec)
-
-
-def add_mod(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
+def add_mod_ref(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
     """(a + b) mod p for canonical inputs; works in either domain."""
     raw = a + b
     return _reduce_once(raw, const_tensor(spec.mod, a.device, raw.dim()))
 
 
-def sub_mod(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
+def sub_mod_ref(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
     """(a - b) mod p."""
     raw = a - b
     mod = const_tensor(spec.mod, a.device, raw.dim())
@@ -212,11 +221,167 @@ def sub_mod(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Ten
     return torch.where(carry[0] >= 0, limbs[:, 0], limbs[:, 1])
 
 
-def neg_mod(a: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
+def neg_mod_ref(a: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
     """p - a, with 0 -> 0."""
     mod = const_tensor(spec.mod, a.device, a.dim())
     diff, _ = normalize(mod - a)
     return torch.where(is_zero(a).unsqueeze(0), torch.zeros_like(a), diff)
+
+
+def mont_pow_ref(a: torch.Tensor, exponent: int, spec: FieldSpec = FR) -> torch.Tensor:
+    """Fixed-exponent power by left-to-right square-and-multiply."""
+    one = const_tensor(spec.one_mont, a.device, a.dim())
+    result = one.expand_as(a).clone()
+    for bit in bin(exponent)[2:]:
+        result = mont_mul_ref(result, result, spec)
+        if bit == "1":
+            result = mont_mul_ref(result, a, spec)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: the kernels (X0a-X0c, csrc/field_ops.cu) on a CUDA tensor, the
+# plain versions on a CPU tensor or inside ``plain()``
+# ---------------------------------------------------------------------------
+
+_mode = threading.local()
+
+
+@contextlib.contextmanager
+def plain():
+    """Inside the block the field operations run their plain versions on
+    every device. The plain versions of the other kernels (and ``ntt_ref``)
+    run in it, so that a kernel is held against plain torch on the card and
+    not against X0."""
+    depth = getattr(_mode, "plain", 0)
+    _mode.plain = depth + 1
+    try:
+        yield
+    finally:
+        _mode.plain = depth
+
+
+def plain_version(fn):
+    """Decorator: ``fn`` runs inside ``plain()``."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with plain():
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def on_card(a) -> bool:
+    """Whether an operation on ``a`` launches its kernel: a CUDA tensor
+    outside ``plain()``. A CPU tensor runs the plain version; any other
+    device raises."""
+    kind = a.device.type
+    if kind == "cpu" or getattr(_mode, "plain", 0):
+        return False
+    if kind != "cuda":
+        raise ValueError(f"field_torch: unsupported device {a.device}")
+    return True
+
+
+MAX_BATCH_DIMS = 8  # csrc/field_ops.cuh MAXD
+_FIELD_CODES = {F.FR_MOD: 0, F.FQ_MOD: 1}
+
+
+def strides_meta(*xs: torch.Tensor) -> tuple[tuple, list[int]]:
+    """The operands' broadcast batch shape, and what ``csrc/field_ops.cuh``
+    reads of them: that shape, then each operand's limb stride and batch
+    strides in elements (0 on an axis it broadcasts over, missing leading
+    axes included)."""
+    batch = tuple(torch.broadcast_shapes(*(x.shape[1:] for x in xs)))
+    meta = list(batch)
+    for x in xs:
+        st, shape = x.stride(), x.shape
+        meta.append(st[0])
+        meta += [0] * (len(batch) + 1 - x.dim())
+        meta += [0 if shape[d] == 1 else st[d] for d in range(1, x.dim())]
+    return batch, meta
+
+
+def _launch_args(name: str, spec: FieldSpec, *xs: torch.Tensor):
+    """Checks the operands, builds the library, and returns it with the
+    output (16, *batch), ``strides_meta`` as a C array, the field code and
+    the stream."""
+    for x in xs:
+        if x.dtype != DTYPE or x.dim() < 1 or x.shape[0] != NLIMBS:
+            raise ValueError(f"{name}: operands must be (16, ...) int64 limb tensors")
+        if x.device != xs[0].device:
+            raise ValueError(f"{name}: operands on {x.device} and {xs[0].device}")
+    if spec.mod_int not in _FIELD_CODES:
+        raise ValueError(f"{name}: no kernel for {spec}")
+    lib = build.cuda_library()
+    batch, meta = strides_meta(*xs)
+    if len(batch) > MAX_BATCH_DIMS:
+        raise ValueError(f"{name}: more than {MAX_BATCH_DIMS} batch axes")
+    out = torch.empty((NLIMBS,) + batch, dtype=DTYPE, device=xs[0].device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    return lib, out, (ctypes.c_int64 * len(meta))(*meta), _FIELD_CODES[spec.mod_int], stream
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
+    """Montgomery product a·b·2^-256 mod p on (16, *batch) limbs, the
+    operands broadcast over the batch axes. One operand must be < p and the
+    other < 2^256; the result is canonical. X0a on a CUDA tensor."""
+    if not on_card(a):
+        return mont_mul_ref(a, b, spec)
+    lib, out, meta, field, stream = _launch_args("mont_mul", spec, a, b)
+    if out.numel():
+        mont_mul.launches += 1
+        build.check(lib.field_mont_mul_cuda(a.data_ptr(), b.data_ptr(), out.data_ptr(), meta,
+                                            out.dim() - 1, field, stream), "field_mont_mul_cuda")
+    return out
+
+
+mont_mul.launches = 0
+
+ADD, SUB, NEG = 0, 1, 2  # linear's op codes (csrc/field_ops.cuh LinearOp)
+
+
+def linear(op: int, a: torch.Tensor, b: torch.Tensor | None, spec: FieldSpec = FR) -> torch.Tensor:
+    """a + b, a - b or -a mod p (``ADD``, ``SUB``, ``NEG``; b unused for
+    ``NEG``), broadcast over the batch axes. X0b on a CUDA tensor."""
+    if op not in (ADD, SUB, NEG):
+        raise ValueError(f"linear: unknown op {op}")
+    if not on_card(a):
+        if op == ADD:
+            return add_mod_ref(a, b, spec)
+        if op == SUB:
+            return sub_mod_ref(a, b, spec)
+        return neg_mod_ref(a, spec)
+    b = a if op == NEG else b
+    lib, out, meta, field, stream = _launch_args("linear", spec, a, b)
+    if out.numel():
+        linear.launches += 1
+        build.check(lib.field_linear_cuda(op, a.data_ptr(), b.data_ptr(), out.data_ptr(), meta,
+                                          out.dim() - 1, field, stream), "field_linear_cuda")
+    return out
+
+
+linear.launches = 0
+
+
+def add_mod(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
+    """(a + b) mod p for canonical inputs; works in either domain."""
+    return linear(ADD, a, b, spec)
+
+
+def sub_mod(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
+    """(a - b) mod p."""
+    return linear(SUB, a, b, spec)
+
+
+def neg_mod(a: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
+    """p - a, with 0 -> 0."""
+    return linear(NEG, a, None, spec)
+
+
+def mont_sqr(a: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
+    return mont_mul(a, a, spec)
 
 
 def to_mont(a: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
@@ -237,14 +402,23 @@ def pow5(a: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
 
 
 def mont_pow(a: torch.Tensor, exponent: int, spec: FieldSpec = FR) -> torch.Tensor:
-    """Fixed-exponent power by left-to-right square-and-multiply."""
-    one = const_tensor(spec.one_mont, a.device, a.dim())
-    result = one.expand_as(a).clone()
-    for bit in bin(exponent)[2:]:
-        result = mont_mul(result, result, spec)
-        if bit == "1":
-            result = mont_mul(result, a, spec)
-    return result
+    """Fixed-exponent power by left-to-right square-and-multiply; X0c on a
+    CUDA tensor (the whole chain in one launch, 0 <= exponent < 2^256)."""
+    if not on_card(a):
+        return mont_pow_ref(a, exponent, spec)
+    if not 0 <= exponent < 1 << 256:
+        raise ValueError("mont_pow: the kernel takes exponents in [0, 2^256)")
+    lib, out, meta, field, stream = _launch_args("mont_pow", spec, a, a)
+    if out.numel():
+        words = (ctypes.c_uint32 * 8)(*((exponent >> (32 * i)) & 0xFFFFFFFF for i in range(8)))
+        mont_pow.launches += 1
+        build.check(lib.field_pow_cuda(a.data_ptr(), out.data_ptr(), meta, out.dim() - 1, words,
+                                       max(1, exponent.bit_length()), field, stream),
+                    "field_pow_cuda")
+    return out
+
+
+mont_pow.launches = 0
 
 
 def inv_mont(a: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:

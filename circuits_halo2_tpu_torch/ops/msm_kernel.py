@@ -28,6 +28,7 @@ def _lanes(px: torch.Tensor, L: int) -> int:
     return px[0].numel() // L
 
 
+@FT.plain_version
 def segmented_scan_ref(px, py, pvalid, seg, L: int):
     """Plain torch chunk-local segmented scan (same outputs as the kernel)."""
     from . import msm

@@ -50,6 +50,7 @@ def _ref_tables(device: str):
     return rc, mds
 
 
+@FT.plain_version
 def permute_ref(s0: torch.Tensor, s1: torch.Tensor):
     """Batched permutation on (16, N) canonical Montgomery limbs."""
     rc, mds = _ref_tables(str(s0.device))
@@ -65,6 +66,7 @@ def permute_ref(s0: torch.Tensor, s1: torch.Tensor):
     return s0, s1
 
 
+@FT.plain_version
 def hash_batch_ref(inputs: torch.Tensor) -> torch.Tensor:
     """The same sponge on torch limb tensors (field_torch)."""
     length, _, n = inputs.shape

@@ -95,6 +95,7 @@ def _canon(v: torch.Tensor) -> torch.Tensor:
     return FT._reduce_once(FT._reduce_once(raw, mod), mod)
 
 
+@FT.plain_version
 def reduce_ref(t: torch.Tensor) -> torch.Tensor:
     """(32, N) product columns (value < 2^512) -> (16, N) canonical residue:
     byte planes, one matrix product against ``W`` (exact: every sum is below
@@ -111,11 +112,13 @@ def reduce_ref(t: torch.Tensor) -> torch.Tensor:
     return _canon(v)
 
 
+@FT.plain_version
 def mul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a·b mod p for (16, N) limbs of values below 2^256."""
     return reduce_ref(_product(a, b))
 
 
+@FT.plain_version
 def canon256_ref(a: torch.Tensor) -> torch.Tensor:
     """(16, N) limbs of any value below 2^256 -> canonical."""
     return _canon(torch.cat([a, torch.zeros_like(a[:1])]))
@@ -127,6 +130,7 @@ def _pow5(x: torch.Tensor) -> torch.Tensor:
     return mul_ref(x4, x)
 
 
+@FT.plain_version
 def permute_mxu_ref(s0: torch.Tensor, s1: torch.Tensor):
     """One permutation on (16, N) canonical plain residues."""
     _, rc, mds, _ = _ref_tables(str(s0.device))
@@ -142,6 +146,7 @@ def permute_mxu_ref(s0: torch.Tensor, s1: torch.Tensor):
     return s0, s1
 
 
+@FT.plain_version
 def hash_batch_mxu_ref(inputs: torch.Tensor) -> torch.Tensor:
     """The sponge of ``hash_batch_mxu`` in plain torch, step for step."""
     length, _, n = inputs.shape

@@ -79,6 +79,7 @@ def _bcast_ref(x: torch.Tensor, iters: int) -> torch.Tensor:
     return acc
 
 
+@FT.plain_version
 def run_ref(variant: str, x: torch.Tensor, y: torch.Tensor, iters: int) -> torch.Tensor:
     """The plain version of ``run``."""
     if variant == "bcast":

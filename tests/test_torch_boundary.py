@@ -19,6 +19,7 @@ from circuits_halo2_tpu_torch.merkle.mst import MerkleSumTree
 from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
 from circuits_halo2_tpu_torch.ops import field_torch as FT
 from circuits_halo2_tpu_torch.ops import msm_kernel as MK
+from circuits_halo2_tpu_torch.ops import ntt as NTT
 from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
 from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
 from circuits_halo2_tpu_torch.scripts import exp_poseidon_mxu as EXP
@@ -242,6 +243,34 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
                   _fake_cuda((2, 2, EK.DIGITS), torch.int8))
 
 
+def test_field_ops_raise_instead_of_falling_back(monkeypatch):
+    """X0a-X0c and X1: every public field operation and the NTT, given a
+    CUDA tensor, launch or raise (here: no nvcc); none runs its plain
+    version."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a host without CUDA")
+
+    class FellBack(Exception):
+        pass
+
+    def no_fallback(*args, **kwargs):
+        raise FellBack("fell back to the plain version")
+
+    for name in ("mont_mul_ref", "add_mod_ref", "sub_mod_ref", "neg_mod_ref", "mont_pow_ref"):
+        monkeypatch.setattr(FT, name, no_fallback)
+    monkeypatch.setattr(NTT, "ntt_ref", no_fallback)
+    a, b = _fake_cuda((16, 3, 8)), _fake_cuda((16, 1, 8))
+    for call in (lambda: FT.mont_mul(a, b), lambda: FT.mont_sqr(a), lambda: FT.to_mont(a, FT.FQ),
+                 lambda: FT.from_mont(a), lambda: FT.pow5(a), lambda: FT.add_mod(a, b),
+                 lambda: FT.sub_mod(a, b, FT.FQ), lambda: FT.neg_mod(a),
+                 lambda: FT.mont_pow(a, 5), lambda: FT.inv_mont(a), lambda: NTT.ntt(a, 1),
+                 lambda: NTT.intt(a, 1)):
+        # RuntimeError from the build; AssertionError where a constant is
+        # made on the card first (this torch build has no CUDA)
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
+
+
 def test_wrappers_reject_other_devices():
     meta = torch.empty((2, 16, 8), dtype=FT.DTYPE, device="meta")
     with pytest.raises(ValueError):
@@ -255,6 +284,11 @@ def test_wrappers_reject_other_devices():
     coords = torch.empty((16, 1, 4), dtype=FT.DTYPE, device="meta")
     with pytest.raises(ValueError):
         EK.ec_fft(coords, coords, coords, torch.empty((16, 1, 3), dtype=FT.DTYPE, device="meta"))
+    for call in (lambda: FT.mont_mul(coords, coords), lambda: FT.add_mod(coords, coords),
+                 lambda: FT.neg_mod(coords), lambda: FT.inv_mont(coords),
+                 lambda: NTT.ntt(coords, 1)):
+        with pytest.raises(ValueError):
+            call()
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):

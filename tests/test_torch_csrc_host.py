@@ -22,12 +22,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from circuits_halo2_tpu.ops import curve as C
 from circuits_halo2_tpu.ops import field as F
+from circuits_halo2_tpu.ops import field_jax as FJ
+from circuits_halo2_tpu.ops import ntt as JN
 from circuits_halo2_tpu_torch import native
 from circuits_halo2_tpu_torch.ops import curve as TC
 from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
@@ -56,6 +59,7 @@ HARNESS = r"""
 #include "msm_scan.cu"
 #include "poseidon_mxu.cu"
 #include "ec_fft.cu"
+#include "field_ops.cu"
 
 template <class T> static std::vector<T> take(size_t n) {
     std::vector<T> v(n);
@@ -125,6 +129,22 @@ template <class Half, class Finish> static void x4_blocks(long threads, Half hal
     for (long b0 = 0; b0 < threads; b0 += X4_BLOCK) {
         for (int i = 0; i < X4_BLOCK && b0 + i < threads; ++i) half(sm.data(), i, b0 + i);
         for (int i = 0; i < X4_BLOCK && b0 + i < threads; ++i) finish(sm.data(), i, b0 + i);
+    }
+}
+
+// An X0 launch as the card runs it, thread by thread: op 0 the product,
+// 1-3 add, sub, neg, 4 the power.
+template <class P>
+static void x0_threads(int op, const int64_t* a, const int64_t* b, int64_t* out,
+                       const fops::Shape& s, const fops::Strides& sa, const fops::Strides& sb,
+                       const fops::Exponent& e, int64_t m) {
+    for (uint32_t t = 0; t < (uint32_t)m; ++t) {
+        if (op == 0)
+            fops::mont_mul_thread<P>(a, b, out, s, sa, sb, m, t);
+        else if (op < 4)
+            fops::linear_thread<P>(op - 1, a, b, out, s, sa, sb, m, t);
+        else
+            fops::pow_thread<P>(a, out, s, sa, e, m, t);
     }
 }
 
@@ -240,6 +260,35 @@ int main(int argc, char** argv) {
             out[8 * n + i] = mxu::quotient(((uint64_t)v[9 * i + 8] << 32) | v[9 * i + 7]);
         }
         fwrite(out.data(), 4, out.size(), stdout);
+    } else if (mode == "fops") {  // X0: field (L), op (n), nd, then each operand's storage length
+        const int nd = atoi(argv[4]);
+        const long alen = atol(argv[5]), blen = atol(argv[6]);
+        auto meta = take<int64_t>(3 * nd + 2);
+        auto av = take<int64_t>(alen), bv = take<int64_t>(blen);
+        auto ex = take<uint32_t>(9);
+        fops::Shape s;
+        fops::Strides sa, sb;
+        int64_t m;
+        if (!fops::collapse(meta.data(), nd, s, sa, sb, m)) exit(3);
+        fops::Exponent e;
+        memcpy(e.w, ex.data(), 32);
+        e.nbits = (int)ex[8];
+        std::vector<int64_t> out((size_t)16 * m + 1);
+        out[16 * m] = s.ndim;  // the axes left after collapsing
+        if (L == 0)
+            x0_threads<bn254::Fr>(n, av.data(), bv.data(), out.data(), s, sa, sb, e, m);
+        else
+            x0_threads<bn254::Fq>(n, av.data(), bv.data(), out.data(), s, sa, sb, e, m);
+        fwrite(out.data(), 8, out.size(), stdout);
+    } else if (mode == "ntt") {  // X1: L bit-reversed rows of n points, stage by stage; the table
+        auto x = take<int64_t>((size_t)16 * L * n);
+        auto tw = take<int64_t>((size_t)16 * (n - 1));
+        int logn = 0;
+        while ((1L << logn) < n) ++logn;
+        for (int st = 0; st < logn; ++st)
+            for (uint32_t g = 0; g < (uint32_t)(L * n / 2); ++g)
+                fops::ntt_thread(x.data(), tw.data(), L, logn, st, g);
+        fwrite(x.data(), 8, x.size(), stdout);
     } else {  // scan: n points, L steps per lane
         auto seg = take<int64_t>(n);
         auto val = take<uint8_t>(n);
@@ -683,3 +732,143 @@ def test_ec_fft_thread_code_downsizes_the_ceremony_file(harness):
     raw = b"".join(TC.g1_to_raw_bytes(p) for p in lagrange)
     assert len(lagrange) == fix["count"]
     assert hashlib.sha256(raw).hexdigest() == fix["g_lagrange_sha256"]
+
+
+# ---------------------------------------------------------------------------
+# X0 and X1 (csrc/field_ops.cuh): each kernel's per-thread function run for
+# every element of the output, as the card runs it
+# ---------------------------------------------------------------------------
+
+X0_OPS = {"mul": 0, "add": 1, "sub": 2, "neg": 3, "pow": 4}
+X0_FIELDS = {"fr": (0, FT.FR, FJ.FR), "fq": (1, FT.FQ, FJ.FQ)}
+
+
+def _storage_from(x: torch.Tensor) -> np.ndarray:
+    """The int64 storage under a view, from its first element on (what the
+    kernel's pointer sees)."""
+    count = x.untyped_storage().nbytes() // 8 - x.storage_offset()
+    return torch.as_strided(x, (count,), (1,), x.storage_offset()).numpy()
+
+
+def _x0(exe, code: int, op: str, a: torch.Tensor, b: torch.Tensor, exponent: int = 0):
+    """X0's per-thread code over the broadcast batch of the views a and b,
+    read through ``FT.strides_meta`` as the wrapper hands them over; returns
+    the (16, *batch) output and the batch axes left after the collapse."""
+    batch, meta = FT.strides_meta(a, b)
+    sa, sb = _storage_from(a), _storage_from(b)
+    ex = [(exponent >> (32 * i)) & 0xFFFFFFFF for i in range(8)] + [max(1, exponent.bit_length())]
+    payload = (np.asarray(meta, np.int64).tobytes() + sa.tobytes() + sb.tobytes()
+               + np.asarray(ex, np.uint32).tobytes())
+    out = _run(exe, "fops", code, X0_OPS[op], payload, np.int64, len(batch), len(sa), len(sb))
+    return torch.as_tensor(out[:-1]).reshape((16,) + batch), int(out[-1])
+
+
+def _x0_ref(op: str, a, b, spec, exponent: int = 0):
+    return {"mul": lambda: FT.mont_mul_ref(a, b, spec), "add": lambda: FT.add_mod_ref(a, b, spec),
+            "sub": lambda: FT.sub_mod_ref(a, b, spec), "neg": lambda: FT.neg_mod_ref(a, spec),
+            "pow": lambda: FT.mont_pow_ref(a, exponent, spec)}[op]()
+
+
+def _x0_operands(p: int, op: str, seed: int):
+    """Flat operands: 0, 1 and p - 1 against each other and random values
+    below p; for the product also values in [p, 2^256) (to_mont's raw limbs)
+    against canonical ones, on either side."""
+    rng = np.random.default_rng(seed)
+    rand = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(24)]
+    a = [0, 1, p - 1, 0, 1, p - 1, 0, p - 1] + rand
+    b = [0, 0, 0, 1, p - 1, p - 1, p - 1, 1] + rand[::-1]
+    if op == "mul":
+        above = [p, p + 1, 2 * p - 1, 5 * p, (1 << 256) - 1]
+        above += [p + int.from_bytes(rng.bytes(32), "little") % ((1 << 256) - p) for _ in range(7)]
+        canon = rand[: len(above)]
+        a, b = a + above + canon, b + canon + above
+    return (torch.as_tensor(FT.ints_to_limbs(v)) for v in (a, b))
+
+
+@pytest.mark.parametrize("op", sorted(X0_OPS))
+@pytest.mark.parametrize("field", sorted(X0_FIELDS))
+def test_x0_thread_code_matches_plain_and_jax(harness, field, op):
+    """X0a-X0c's per-thread code on edge and random operands gives the plain
+    torch versions' limbs and field_jax's (the inversion: a^(p - 2), 0 -> 0)."""
+    code, ts, js = X0_FIELDS[field]
+    ta, tb = _x0_operands(ts.mod_int, op, seed=code * 8 + X0_OPS[op])
+    exponent = ts.mod_int - 2
+    got, _ = _x0(harness, code, op, ta, tb, exponent)
+    assert torch.equal(got, _x0_ref(op, ta, tb, ts, exponent))
+    ja, jb = (jnp.asarray(t.numpy().astype(np.uint32)) for t in (ta, tb))
+    want = {"mul": lambda: FJ.mont_mul(ja, jb, js), "add": lambda: FJ.add_mod(ja, jb, js),
+            "sub": lambda: FJ.sub_mod(ja, jb, js), "neg": lambda: FJ.neg_mod(ja, js),
+            "pow": lambda: FJ.inv_mont(ja, js)}[op]()
+    assert np.array_equal(np.asarray(want).astype(np.int64), got.numpy())
+
+
+@pytest.mark.parametrize("exponent", [0, 1, 5, 12345, (1 << 256) - 1])
+def test_x0_pow_thread_code_exponents(harness, exponent):
+    """X0c at exponents 0 (the plain loop's one squaring of 1), 1, 5, 12345
+    and 2^256 - 1 gives the plain ``mont_pow`` limb for limb."""
+    ta, _ = _x0_operands(FT.FR.mod_int, "pow", seed=exponent % 97)
+    ta = ta[:, :12]
+    got, _ = _x0(harness, 0, "pow", ta, ta, exponent)
+    assert torch.equal(got, FT.mont_pow_ref(ta, exponent))
+
+
+def _limbs(rng, count: int) -> torch.Tensor:
+    """(16, count) limbs of random 16-bit values: any value below 2^256."""
+    return torch.as_tensor(rng.integers(0, 1 << 16, (16, count), dtype=np.int64))
+
+
+def _strided_case(name: str):
+    """(a, b, batch axes left after the collapse) for operands laid out as
+    the prover hands them over, each read in place."""
+    rng = np.random.default_rng(len(name))
+    if name == "lane_table":  # (16, U, B, n) columns x a (16, 1, 1, n) table
+        return _limbs(rng, 2 * 3 * 8).reshape(16, 2, 3, 8), _limbs(rng, 8).reshape(16, 1, 1, 8), 2
+    if name == "challenge":  # (16, U, B, n) x a (16, U, 1, 1) challenge per user
+        return _limbs(rng, 2 * 3 * 8).reshape(16, 2, 3, 8), _limbs(rng, 2).reshape(16, 2, 1, 1), 2
+    if name == "column_view":  # sigma[:, :, idx]-like: a column of a wider tensor
+        cols = _limbs(rng, 2 * 5 * 8).reshape(16, 2, 5, 8)
+        return cols[:, :, 3], _limbs(rng, 2 * 8).reshape(16, 2, 8), 2
+    if name == "expand":  # a constant expanded (stride 0) against a transposed view
+        wide = _limbs(rng, 6 * 4).reshape(16, 6, 4).transpose(1, 2)
+        return wide, _limbs(rng, 1).reshape(16, 1, 1).expand(16, 4, 6), 2
+    if name == "contiguous":  # merges into one axis
+        return _limbs(rng, 2 * 3 * 8).reshape(16, 2, 3, 8), _limbs(rng, 48).reshape(16, 2, 3, 8), 1
+    # as_strided: overlapping rows at an offset, and limbs at stride 1 with a
+    # broadcast axis
+    flat = _limbs(rng, 64).reshape(-1)
+    a = torch.as_strided(flat, (16, 4, 6), (60, 1, 7), 5)
+    return a, torch.as_strided(flat, (16, 1, 6), (1, 0, 16), 0), 2
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub", "neg"])
+@pytest.mark.parametrize("case", ["lane_table", "challenge", "column_view", "expand",
+                                  "contiguous", "as_strided"])
+def test_x0_thread_code_reads_strided_operands(harness, case, op):
+    """The offsets X0 computes from ``strides_meta`` after the host's collapse
+    read broadcast, strided, transposed and ``torch.as_strided`` operands in
+    place: the outputs equal the plain versions on the same views (values
+    anywhere below 2^256, limb for limb)."""
+    a, b, axes = _strided_case(case)
+    got, left = _x0(harness, 1 if op == "sub" else 0, op, a, b)
+    spec = FT.FQ if op == "sub" else FT.FR
+    assert torch.equal(got, _x0_ref(op, a, b, spec))
+    if op != "neg":
+        assert left == axes
+
+
+def test_x1_thread_code_runs_a_2_11_transform(harness):
+    """X1's per-thread butterfly run stage by stage over two bit-reversed
+    2^11-point rows (0 and p - 1 among them) gives ``ntt_ref``'s limbs and
+    the JAX package's ``ntt``."""
+    n, rows = 1 << 11, 2
+    rng = np.random.default_rng(23)
+    vals = [int.from_bytes(rng.bytes(32), "little") % F.FR_MOD for _ in range(rows * n)]
+    vals[0], vals[n + 1] = 0, F.FR_MOD - 1
+    a = torch.as_tensor(FT.to_mont_limbs(vals)).reshape(16, rows, n)
+    omega = NTT.omega_for_k(11)
+    rev, flat, _ = NTT._tables(n, omega, "cpu")
+    payload = a.index_select(-1, rev).numpy().tobytes() + flat.numpy().tobytes()
+    got = torch.as_tensor(_run(harness, "ntt", rows, n, payload, np.int64)).reshape(16, rows, n)
+    assert torch.equal(got, NTT.ntt_ref(a, omega))
+    want = JN.ntt(jnp.asarray(a.numpy().astype(np.uint32)), omega)
+    assert np.array_equal(np.asarray(want).astype(np.int64), got.numpy())

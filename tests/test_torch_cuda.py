@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card: K1, K2, K3, K4, the K5/K6 probes and X4 (the
-EC-FFT) against their plain torch versions at ragged and main-path shapes,
+"""The CUDA kernels on the card: K1, K2, K3, K4, the K5/K6 probes, X4 (the
+EC-FFT) and X0/X1 (the field arithmetic and the NTT stages) against their
+plain torch versions at ragged and main-path shapes,
 the device tree and the Pippenger on the card against the same code on the
 CPU and the native host code, X4's Lagrange bases against the analytic
 ones, the incremental step chain on the card against the JAX package's
@@ -26,6 +27,7 @@ from circuits_halo2_tpu_torch.ops import field as F
 from circuits_halo2_tpu_torch.ops import field_torch as FT
 from circuits_halo2_tpu_torch.ops import msm as TM
 from circuits_halo2_tpu_torch.ops import msm_kernel as MK
+from circuits_halo2_tpu_torch.ops import ntt as NTT
 from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
 from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
 from circuits_halo2_tpu_torch.parallel import worker
@@ -304,3 +306,97 @@ def test_nccl_rank_commit_equals_single_device(dev):
     assert got["collectives"]["all_gather"] == 1
     points, scal = T.commit_inputs()
     assert tuple(int(v, 16) for v in got["point"]) == native.g1_msm(points, scal)
+
+
+def _limbs(dev, shape, rng, spec=FT.FR):
+    """Canonical Montgomery limbs of random elements, shaped (16, *shape)."""
+    count = int(np.prod(shape))
+    vals = [int.from_bytes(rng.bytes(32), "little") % spec.mod_int for _ in range(count)]
+    vals[0] = 0
+    vals[-1] = spec.mod_int - 1
+    return torch.as_tensor(FT.to_mont_limbs(vals, spec), device=dev).reshape((16,) + tuple(shape))
+
+
+def _operand_pairs(dev, rng, spec):
+    """(a, b) pairs as the path hands them over: a lane table and a
+    challenge broadcast over (16, U, B, n) columns, a strided column view,
+    a transposed view against an expanded constant, and raw limbs (to_mont's
+    operand, any value below 2^256) against a constant."""
+    cols = _limbs(dev, (2, 3, 1000), rng, spec)
+    wide = _limbs(dev, (2, 5, 1000), rng, spec)
+    raw = torch.as_tensor(rng.integers(0, 1 << 16, (16, 4, 777)), device=dev)
+    return {
+        "lane_table": (cols, _limbs(dev, (1, 1, 1000), rng, spec)),
+        "challenge": (cols, _limbs(dev, (2, 1, 1), rng, spec)),
+        "column_view": (wide[:, :, 3], wide[:, :, 1]),
+        "transposed": (wide.transpose(2, 3),
+                       _limbs(dev, (1, 1, 1), rng, spec).expand(16, 2, 1000, 5)),
+        "raw": (raw, FT.const_tensor(spec.r2, dev, 3)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_x0a_x0b_match_plain(dev, field):
+    """X0a (mont_mul) and X0b (add, sub, neg) on broadcast, strided and raw
+    operands equal their plain versions limb for limb, one launch each."""
+    spec = FT.FR if field == "fr" else FT.FQ
+    rng = np.random.default_rng(len(field))
+    for name, (a, b) in _operand_pairs(dev, rng, spec).items():
+        before = FT.mont_mul.launches, FT.linear.launches
+        got = FT.mont_mul(a, b, spec)
+        assert FT.mont_mul.launches == before[0] + 1
+        assert got.is_contiguous() and torch.equal(got, FT.mont_mul_ref(a, b, spec)), name
+        if name == "raw":
+            continue
+        for fn, ref in ((FT.add_mod, FT.add_mod_ref), (FT.sub_mod, FT.sub_mod_ref)):
+            assert torch.equal(fn(a, b, spec), ref(a, b, spec)), (name, fn.__name__)
+        assert torch.equal(FT.neg_mod(a, spec), FT.neg_mod_ref(a, spec)), name
+        assert FT.linear.launches == before[1] + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 1), (1 << 16,)])
+def test_x0c_matches_plain(dev, shape):
+    """X0c: the Fermat inversion on batch_inv_dev's (16, 1, 3, 1) and on 2^16
+    elements (0 -> 0) in one launch, equal to the plain chain; a^-1 a = 1."""
+    rng = np.random.default_rng(len(shape))
+    a = _limbs(dev, shape, rng)
+    before = FT.mont_pow.launches
+    got = FT.inv_mont(a)
+    assert FT.mont_pow.launches == before + 1
+    assert torch.equal(got, FT.mont_pow_ref(a, FT.FR.mod_int - 2))
+    one = FT.const_tensor(FT.FR.one_mont, dev, a.dim()).expand_as(a)
+    nonzero = ~FT.is_zero(a)
+    assert torch.equal(FT.mont_mul(got, a)[:, nonzero], one[:, nonzero])
+    assert torch.equal(got[:, ~nonzero], a[:, ~nonzero])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,rows", [(1, 3), (11, 1), (13, 3)])
+def test_x1_matches_plain(dev, k, rows):
+    """X1 through ntt and intt (k stages a transform) equals ntt_ref, and
+    intt undoes ntt."""
+    rng = np.random.default_rng(k)
+    a = _limbs(dev, (rows, 1 << k), rng)
+    omega = NTT.omega_for_k(k)
+    before = NTT.dit_stages.launches
+    got = NTT.ntt(a, omega)
+    assert NTT.dit_stages.launches == before + k
+    assert torch.equal(got, NTT.ntt_ref(a, omega))
+    assert torch.equal(NTT.intt(got, omega), a)
+
+
+@pytest.mark.cuda
+def test_plain_versions_launch_no_x0(dev):
+    """Inside plain() (and so in every other kernel's plain version) the field
+    operations run plain torch on the card: no X0 or X1 launch."""
+    rng = np.random.default_rng(3)
+    a = _limbs(dev, (64,), rng)
+    before = FT.mont_mul.launches, FT.linear.launches, FT.mont_pow.launches, NTT.dit_stages.launches
+    PK.hash_batch_ref(a[None].expand(2, 16, 64))
+    NTT.ntt_ref(a, NTT.omega_for_k(6))
+    with FT.plain():
+        FT.inv_mont(FT.add_mod(a, a))
+    after = FT.mont_mul.launches, FT.linear.launches, FT.mont_pow.launches, NTT.dit_stages.launches
+    assert after == before
