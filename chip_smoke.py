@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``circuits_halo2_tpu_torch/csrc``,
-checks each of the eleven (K1-K6, X4 the EC-FFT, X0a-X0c the field
-arithmetic and X1 the NTT stage) against its plain torch version on the
+checks each of the twelve (K1-K6, X4 the EC-FFT, X0a-X0c the field
+arithmetic and the inversion, the power chain, X1 the NTT) against its
+plain torch version on the
 card (X4 at the path's 2^10 and 2^13 in two child processes, beside the
 other checks; at 2^16, where the card is full, against setup(16)'s
 analytic Lagrange bases; X0 and X1 at the prover's shapes, their plain
@@ -12,7 +13,8 @@ versions run inside ``field_torch.plain()``), then drives seven paths
 through their user entry points, each with the launch counts set to 0
 just before it and read just after:
 
-- the proving path (K1, K3, X4, X0a-X0c and X1):
+- the proving path (K1, K3, X4, X0a-X0c and X1; the power chain is off
+  every path since the inversion has its own kernel, and launches 0):
   - the reference criterion config (a 2^20-entry Merkle sum tree,
     N_CURRENCIES=1, N_BYTES=8, LEVELS=20, k=13): the tree, its sorted
     build, keygen, a proof that verifies, and the proofs of the JAX
@@ -138,6 +140,9 @@ ADD_WIDE = 11 * MUL + 5 * SQR
 X4_BIG = 16  # X4's exact check at full width: g_to_lagrange of setup(16)'s bases
 # X0 and X1 read and write the port's int64 limbs: 128 bytes an element
 LIMB_FE = 16 * 8
+# Profiles taken before giving up on one that misses kernels (seen after
+# a few in one process)
+PROFILE_TRIES = 8
 
 
 def log(msg: str) -> None:
@@ -419,24 +424,40 @@ def mont_limbs(device, rng, shape, spec=None) -> torch.Tensor:
     return torch.as_tensor(FT.to_mont_limbs(vals, spec), device=device).reshape((16,) + shape)
 
 
+# The Domain's transforms, each one X1 call with its factors folded in
+DOMAIN_METHODS = ("coeff_to_extended", "lagrange_to_coeff", "extended_to_coeff",
+                  "vanishing_to_coeff")
+# The rows of the entry_16 k=11 round's 2^11 transforms (keygen's and the
+# prove's Lagrange-to-coefficient calls: 9, 19 and 20 columns a call)
+K11_ROWS = (9, 19, 20)
+
+
 def check_x0_x1(device, report):
-    """X0a-X0c and X1 against their plain versions on the card, limb for limb,
-    at the path's shapes: X0a on k=13 columns (16, 1, 8, 2^13) x a (16, 1,
-    1, 2^13) lane table, on a strided column view x a challenge, on raw
-    limbs (to_mont), at k=17's extended width 2^19, and on Fq at an MSM's
-    (16, 3, 2^13); X0b's three op codes on the k=13 operands; X0c (the
-    Fermat inversion) on batch_inv_dev's (16, 1, 3, 1) and on 2^16
-    elements with zeros; X1 through ntt and intt at 2^13 (a batch of 4) and
-    2^17. The plain versions run inside ``FT.plain()``."""
+    """X0a-X0c, the power chain and X1 against their plain versions on the
+    card, limb for limb, at the path's shapes: X0a on k=13 columns (16, 1, 8,
+    2^13) x a (16, 1, 1, 2^13) lane table, on a strided column view x a
+    challenge, on raw limbs (to_mont), at k=17's extended width 2^19, and on
+    Fq at an MSM's (16, 3, 2^13); X0b's three op codes on the k=13 operands;
+    X0c (the divstep inversion) on batch_inv_dev's (16, 1, 3, 1), on 2^16
+    elements with zeros and on raw limbs, Fr and Fq; the chain (mont_pow)
+    at p - 2 and 5; X1 through ntt and intt at 2^13 x 4, 2^16 x 8, 2^17,
+    2^19 x 2 and 2^11 at the k=11 prove's batches (one pass, a row over a
+    cluster of blocks; each plan logged), on a transposed view (as
+    parallel/ntt_sharded hands one over), and the Domain's four transforms
+    with their factors folded in (k=13, n_ext = 2^16: coeff_to_extended,
+    lagrange_to_coeff, extended_to_coeff, vanishing_to_coeff; and k=11's
+    lagrange_to_coeff) against the plain sequence of the parent (pad, X0a,
+    the transform, X0a). The plain versions run inside ``FT.plain()``."""
     from circuits_halo2_tpu_torch.ops import field_torch as FT
     from circuits_halo2_tpu_torch.ops import ntt as NTT
+    from circuits_halo2_tpu_torch.utils import poly_device as PD
 
     rng = np.random.default_rng(SEED + 12)
 
-    def same(key, fn, what):
+    def same(key, fn, what, plain_fn=None):
         got = fn()
         with FT.plain():
-            want = fn()
+            want = (plain_fn or fn)()
         err = max_abs_err([got], [want])
         require(err == 0 and torch.equal(got, want), f"{key.upper()} differs from its plain "
                 f"version at {what}")
@@ -457,15 +478,91 @@ def check_x0_x1(device, report):
     same("x0b", lambda: FT.sub_mod(cols, lanes), "sub, k=13 columns x a lane table")
     same("x0b", lambda: FT.neg_mod(cols), "neg, k=13 columns (0 among them)")
     same("x0b", lambda: FT.sub_mod(fq[0], fq[1], FT.FQ), "sub, Fq")
-    for shape in ((1, 3, 1), (1 << 16,)):
-        z = mont_limbs(device, rng, shape)
-        same("x0c", lambda: FT.inv_mont(z), f"inv_mont {shape} (0 among them)")
-    for k, shape in ((13, (1, 4, n13)), (17, (1, 1, 1 << 17))):
+    for spec in (FT.FR, FT.FQ):
+        for shape in ((1, 3, 1), (1 << 16,)):
+            z = mont_limbs(device, rng, shape, spec)
+            same("x0c", lambda: FT.inv_mont(z, spec), f"inv_mont {spec} {shape} (0 among them)")
+        same("x0c", lambda: FT.inv_mont(raw, spec), f"inv_mont {spec} of raw limbs")
+    for e in (FT.FR.mod_int - 2, 5):
+        same("x0c_pow", lambda: FT.mont_pow(cols[:, :, :2], e), f"mont_pow, exponent {e}")
+    for k, shape in ((13, (1, 4, n13)), (16, (1, 8, 1 << 16)), (17, (1, 1, 1 << 17)),
+                     (19, (1, 2, 1 << 19))):
         a, omega = mont_limbs(device, rng, shape), NTT.omega_for_k(k)
-        same("x1", lambda: NTT.ntt(a, omega), f"ntt 2^{k}")
-        same("x1", lambda: NTT.intt(a, omega), f"intt 2^{k}")
+        same("x1", lambda: NTT.ntt(a, omega), f"ntt 2^{k} x {shape[1]}")
+        same("x1", lambda: NTT.intt(a, omega), f"intt 2^{k} x {shape[1]}")
+    n11, plans = 1 << 11, []
+    for rows in K11_ROWS:  # the one pass, a row over a cluster of blocks
+        a, omega = mont_limbs(device, rng, (1, rows, n11)), NTT.omega_for_k(11)
+        plans.append(f"{rows} rows: " + "; ".join(
+            f"{p['kind']}, {p['blocks']} blocks of {p['threads']} threads, {p['lines']} rows "
+            f"a block, clusters of {p['cluster']}" for p in NTT.plan(n11, rows)))
+        same("x1", lambda: NTT.ntt(a, omega), f"ntt 2^11 x {rows}")
+        same("x1", lambda: NTT.intt(a, omega), f"intt 2^11 x {rows}")
+    log("X1's plan at 2^11 for the k=11 prove's batches: " + " | ".join(plans))
+    view = mont_limbs(device, rng, (2, 1 << 7, 1 << 6)).transpose(2, 3)
+    same("x1", lambda: NTT._ntt_device(view, NTT.omega_for_k(7)), "a transposed (2, 2^6, 2^7) view")
+    for k, rows, methods in ((CRITERION[3], 3, DOMAIN_METHODS),
+                             (11, max(K11_ROWS), ("lagrange_to_coeff",))):
+        dom = PD.domain(k, 5, str(device))
+        for method in methods:
+            width = dom.n if method in ("coeff_to_extended", "lagrange_to_coeff") else dom.n_ext
+            a = mont_limbs(device, rng, (1, rows, width))
+            same("x1", lambda: getattr(dom, method)(a),
+                 f"k={k} Domain.{method} (16, 1, {rows}, {width})",
+                 lambda: unfused_transform(dom, method, a))
     log("X0a (Fr: lane table, strided view, raw limbs, 2^19; Fq), X0b (add, sub, neg), X0c "
-        "((16, 1, 3, 1), 2^16) and X1 (ntt, intt at 2^13 x 4 and 2^17): equal to plain torch")
+        "((16, 1, 3, 1), 2^16 and raw limbs; Fr and Fq), the chain (p - 2, 5) and X1 (ntt, intt "
+        f"at 2^13 x 4, 2^16 x 8, 2^17, 2^19 x 2 and 2^11 x {', '.join(map(str, K11_ROWS))}; a "
+        "transposed view; the Domain's four fused transforms at k=13 and lagrange_to_coeff at "
+        "k=11 against the parent's plain sequence): equal to plain torch")
+
+
+def unfused_transform(dom, method: str, a: torch.Tensor) -> torch.Tensor:
+    """A Domain transform as the parent ran it: the zero padding and each
+    factor a product of its own around the plain transform."""
+    from circuits_halo2_tpu_torch.ops import field as F
+    from circuits_halo2_tpu_torch.ops import field_torch as FT
+    from circuits_halo2_tpu_torch.ops import ntt as NTT
+
+    def lanes(t):
+        return t.reshape((16,) + (1,) * (a.dim() - 2) + (-1,))
+
+    def inverse(x, omega):
+        n_inv = FT.const_tensor(FT.FR.const(F.fr_inv(int(x.shape[-1]))), x.device, x.dim())
+        return FT.mont_mul(NTT.ntt_ref(x, F.fr_inv(omega)), n_inv)
+
+    if method == "coeff_to_extended":
+        padded = torch.nn.functional.pad(a, (0, dom.n_ext - int(a.shape[-1])))
+        return NTT.ntt_ref(FT.mont_mul(padded, lanes(dom._coset)), dom.omega_ext)
+    if method == "lagrange_to_coeff":
+        return inverse(a, dom.omega)
+    if method == "vanishing_to_coeff":
+        a = FT.mont_mul(a, lanes(dom._zh_inv))
+    return FT.mont_mul(inverse(a, dom.omega_ext), lanes(dom._coset_inv))
+
+
+def device_ms(fn, iters: int, names: tuple) -> tuple[float, float]:
+    """(device ms a call, launches a call) of the kernels whose name holds one
+    of ``names``: ``torch.profiler``'s CUDA kernel durations over ``iters``
+    calls after a warm one (device time only, whatever the host adds). A
+    profile that recorded none of them, or a count that is no multiple of
+    ``iters`` (both seen in a process that had profiled before), is taken
+    again, up to ``PROFILE_TRIES`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.end_ns() - e.start_ns() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA and any(k in e.name() for k in names)]
+        if spans and len(spans) % iters == 0:
+            return sum(spans) / 1e6 / iters, len(spans) / iters
+    raise RuntimeError(f"torch.profiler recorded no {names} kernel in {PROFILE_TRIES} tries")
 
 
 def x0_bound(wide_per_element: int, out: torch.Tensor, *inputs) -> tuple[float, str]:
@@ -479,54 +576,120 @@ def x0_bound(wide_per_element: int, out: torch.Tensor, *inputs) -> tuple[float, 
 
 
 def pow_wide(exponent: int) -> int:
-    """X0c's wide multiplies an element: a squaring per bit, a product per set bit."""
+    """The chain's wide multiplies an element: a squaring per bit, a product per set bit."""
     return max(1, exponent.bit_length()) * SQR + bin(exponent).count("1") * MUL
 
 
+# X0c's own work an element (csrc/field_ops.cuh inv): 25 matrix updates of
+# (d, e) and (f, g), 9 limbs each, 6 and 4 signed 32 x 32 -> 64 products a
+# limb and 4 for the corrections, then the product by R^3
+INV_WIDE = 25 * (9 * 6 + 9 * 4 + 4) + MUL
+X0_KERNEL_NAMES = {"x0a": ("mont_mul_kernel",), "x0b": ("linear_kernel",),
+                   "x0c": ("inv_kernel",), "x0c_pow": ("pow_kernel",), "x1": ("ntt_pass_kernel",)}
+
+
+class DomainX0a:
+    """Within the block, counts the X0a launches made inside each of the
+    Domain's four transforms (the factors are folded into X1, so 0 each)."""
+
+    METHODS = DOMAIN_METHODS
+
+    def __enter__(self):
+        from circuits_halo2_tpu_torch.ops import field_torch as FT
+        from circuits_halo2_tpu_torch.utils import poly_device as PD
+
+        self.cls, self.saved, self.calls, self.x0a = PD.Domain, {}, {}, {}
+        for name in self.METHODS:
+            self.saved[name] = fn = getattr(PD.Domain, name)
+            self.calls[name] = self.x0a[name] = 0
+
+            def counted(dom, *args, _fn=fn, _name=name, **kwargs):
+                before = FT.mont_mul.launches
+                out = _fn(dom, *args, **kwargs)
+                self.calls[_name] += 1
+                self.x0a[_name] += FT.mont_mul.launches - before
+                return out
+
+            setattr(PD.Domain, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+        return False
+
+
+def x1_bound(rows: int, n: int) -> tuple[float, str]:
+    """X1's least time for ``rows`` transforms of n points: the products a
+    radix-2 transform cannot skip, (n / 2) log2(n) less the n - 1 whose
+    twiddle is 1, a row, and the int64 limbs read once and written once."""
+    logn = n.bit_length() - 1
+    return bound_ms(rows * ((n // 2) * logn - (n - 1)) * MUL, 0, LIMB_FE * 2 * rows * n)
+
+
 def x0_x1_timings(device, art, circuit, card) -> dict:
-    """X0a-X0c and X1 against their plain versions (CUDA events; kernel mean
-    of 5 warm calls, plain one call) at the k=13 prover's shapes: 8 columns
-    of its extended domain against a lane table, the inversion of three
-    grand-product denominators, and the coset NTT of those columns. Logs
-    each one's launches in one more k=13 prove first."""
+    """X0a-X0c, the chain and X1 against their plain versions at the k=13
+    prover's shapes: 8 columns of its extended domain against a lane table,
+    the inversion of three grand-product denominators (and the chain on
+    them), and the NTT of those columns. Each kernel's time is its device
+    time (``device_ms``: the profiler's kernel durations, 10 calls), beside
+    the wrapper's (CUDA events over 5 back-to-back calls, host time
+    included); the plain version one call. X1's row is per launch (a 2^16
+    transform is two), as its launches are. Logs each one's launches in one
+    more k=13 prove first, and requires that the Domain's transforms in it
+    launch no X0a."""
     from circuits_halo2_tpu_torch.ops import field_torch as FT
     from circuits_halo2_tpu_torch.ops import ntt as NTT
     from circuits_halo2_tpu_torch.utils import pipeline
     from circuits_halo2_tpu_torch.utils import poly_device as PD
 
-    wrappers = (FT.mont_mul, FT.linear, FT.mont_pow, NTT.dit_stages)
+    keys = ("x0a", "x0b", "x0c", "x0c_pow", "x1")
+    wrappers = (FT.mont_mul, FT.linear, FT.inv_mont, FT.mont_pow, NTT.ntt_passes)
     before = [w.launches for w in wrappers]
-    pipeline.full_prover(art, circuit, circuit.instances())
+    with DomainX0a() as domain:
+        pipeline.full_prover(art, circuit, circuit.instances())
     log("one k=13 prove: " + ", ".join(f"{key.upper()} {w.launches - b} launches"
-                                       for key, w, b in zip(X0_X1, wrappers, before)))
+                                       for key, w, b in zip(keys, wrappers, before)))
+    log("its Domain transforms (calls, X0a launches inside them): " + ", ".join(
+        f"{name} {domain.calls[name]}, {domain.x0a[name]}" for name in DomainX0a.METHODS))
+    require(not any(domain.x0a.values()), "a Domain transform launched X0a")
+    require(all(domain.calls[name] for name in ("coeff_to_extended", "lagrange_to_coeff",
+                                                "vanishing_to_coeff")),
+            "the prove made none of the Domain's transforms")
 
     rng = np.random.default_rng(SEED + 13)
     dom = PD.domain(CRITERION[3], art.pk.vk.cs.degree(), str(device))
     n = dom.n_ext
     cols, lanes = mont_limbs(device, rng, (1, 8, n)), mont_limbs(device, rng, (1, 1, n))
-    out = {}
-    prod = FT.mont_mul(cols, lanes)
-    out["x0a"] = [cuda_ms(lambda: FT.mont_mul(cols, lanes), 5),
-                  cuda_ms(lambda: FT.mont_mul_ref(cols, lanes), 1, warm=False),
-                  *x0_bound(MUL, prod, cols, lanes)]
-    out["x0b"] = [cuda_ms(lambda: FT.add_mod(cols, lanes), 5),
-                  cuda_ms(lambda: FT.add_mod_ref(cols, lanes), 1, warm=False),
-                  *x0_bound(0, prod, cols, lanes)]
     z, e = mont_limbs(device, rng, (1, 3, 1)), FT.FR.mod_int - 2
-    out["x0c"] = [cuda_ms(lambda: FT.inv_mont(z), 5),
-                  cuda_ms(lambda: FT.mont_pow_ref(z, e), 1, warm=False),
-                  *x0_bound(pow_wide(e), z, z)]
+    prod = FT.mont_mul(cols, lanes)
     logn = n.bit_length() - 1
-    out["x1"] = [cuda_ms(lambda: NTT.ntt(cols, dom.omega_ext), 5),
-                 cuda_ms(lambda: NTT.ntt_ref(cols, dom.omega_ext), 1, warm=False),
-                 *bound_ms(8 * logn * (n // 2) * MUL, 0, LIMB_FE * (2 * 8 * n + n - 1))]
-    for key, what in (("x0a", f"mont_mul (16, 1, 8, 2^{logn}) x (16, 1, 1, 2^{logn})"),
-                      ("x0b", f"add_mod (16, 1, 8, 2^{logn}) x (16, 1, 1, 2^{logn})"),
-                      ("x0c", "inv_mont (16, 1, 3, 1)"),
-                      ("x1", f"ntt (16, 1, 8, 2^{logn}), {logn} stages")):
-        ms, plain, bound, by = out[key]
-        log(f"{key.upper()} {what}: kernel {ms:.4f} ms, plain torch {plain:.3f} ms, bound "
-            f"{bound:.4f} ms ({by}) ({card})")
+    calls = {
+        "x0a": (lambda: FT.mont_mul(cols, lanes), lambda: FT.mont_mul_ref(cols, lanes),
+                x0_bound(MUL, prod, cols, lanes)),
+        "x0b": (lambda: FT.add_mod(cols, lanes), lambda: FT.add_mod_ref(cols, lanes),
+                x0_bound(0, prod, cols, lanes)),
+        "x0c": (lambda: FT.inv_mont(z), lambda: FT.mont_pow_ref(z, e), x0_bound(INV_WIDE, z, z)),
+        "x0c_pow": (lambda: FT.mont_pow(z, e), lambda: FT.mont_pow_ref(z, e),
+                    x0_bound(pow_wide(e), z, z)),
+        "x1": (lambda: NTT.ntt(cols, dom.omega_ext), lambda: NTT.ntt_ref(cols, dom.omega_ext),
+               x1_bound(8, n)),
+    }
+    what = {"x0a": f"mont_mul (16, 1, 8, 2^{logn}) x (16, 1, 1, 2^{logn})",
+            "x0b": f"add_mod (16, 1, 8, 2^{logn}) x (16, 1, 1, 2^{logn})",
+            "x0c": "inv_mont (16, 1, 3, 1) (a latency: three threads)",
+            "x0c_pow": "mont_pow (16, 1, 3, 1) at p - 2, the chain inv_mont ran before",
+            "x1": f"ntt (16, 1, 8, 2^{logn})"}
+    out = {}
+    for key, (fn, plain, (bound, by)) in calls.items():
+        dev_ms, per_call = device_ms(fn, 10, X0_KERNEL_NAMES[key])
+        wrap_ms = cuda_ms(fn, 5)
+        plain_ms = cuda_ms(plain, 1, warm=False)
+        per = max(per_call, 1.0)  # launches a call: X1's time, bound and plain per launch
+        out[key] = [dev_ms / per, plain_ms / per, bound / per, by]
+        log(f"{key.upper()} {what[key]}: device {dev_ms:.4f} ms a call in {per_call:g} "
+            f"launches, wrapper {wrap_ms:.4f} ms, plain torch {plain_ms:.3f} ms, bound "
+            f"{bound:.4f} ms ({by}; share {bound / dev_ms:.1%}) ({card})")
     return out
 
 
@@ -1308,7 +1471,7 @@ def parallel_rank(mesh, leaves: str, root: str, sums: list, fixed: list,
     verify_and_flip(art, bytes.fromhex(proof), circuit.instances(), name, KeccakTranscript)
     return {"rank": mesh.rank, "k1": PK.hash_batch.launches, "k3": MK.segmented_scan.launches,
             "x0a": FT.mont_mul.launches, "x0b": FT.linear.launches,
-            "x0c": FT.mont_pow.launches, "x1": NTT.dit_stages.launches, "seconds": seconds,
+            "x0c": FT.inv_mont.launches, "x1": NTT.ntt_passes.launches, "seconds": seconds,
             "sharded": mesh.sharded, "collectives": mesh.stats.calls,
             "collective_bytes": mesh.stats.nbytes, "collective_seconds": mesh.stats.seconds}
 
@@ -1586,9 +1749,12 @@ def bench(spawn, card, suite) -> dict:
     prove = by_metric["prove_mst_inclusion_k11"]
     require("idle_share" in prove or prove.get("profiler") == "no device events",
             "the bench's prove line has no profile")
+    hand = ", ".join(f"{h['kernel']} {h['launches']} ({h['device_s'] * 1e3:.3f} ms)"
+                     for h in prove.get("hand_kernels", []) if h["launches"])
     log(f"bench: every gate held; k=11 prove {prove['value']:.3f} s (traced "
         f"{prove['traced_s']:.3f} s; beside the incremental path), idle share "
-        f"{prove.get('idle_share')}, {prove.get('launches')} CUDA kernels; headline "
+        f"{prove.get('idle_share')}, {prove.get('launches')} CUDA kernels (hand kernels: "
+        f"{hand or 'none'}); headline "
         f"{by_metric['poseidon_bn254_hashes_per_sec']['value']:.1f} hashes/s ({card})")
     return {"k1": sum(line["k1_launches"] for line in lines),
             "k3": sum(line["k3_launches"] for line in lines)}
@@ -1774,11 +1940,13 @@ KERNELS = (  # key, name, source, replaced TPU kernel
      "circuits_halo2_tpu/ops/field_jax.py:329 (XLA, no Pallas)"),
     ("x0b", "field_add_sub_neg", "csrc/field_ops.cu",
      "circuits_halo2_tpu/ops/field_jax.py:352 (XLA, no Pallas)"),
-    ("x0c", "field_pow", "csrc/field_ops.cu",
+    ("x0c", "field_inv_divstep", "csrc/field_ops.cu",
+     "circuits_halo2_tpu/ops/field_jax.py:413 (XLA, no Pallas)"),
+    ("x0c_pow", "field_pow", "csrc/field_ops.cu",
      "circuits_halo2_tpu/ops/field_jax.py:397 (XLA, no Pallas)"),
-    ("x1", "ntt_stage", "csrc/field_ops.cu", "circuits_halo2_tpu/ops/ntt.py:177 (XLA, no Pallas)"),
+    ("x1", "ntt_passes", "csrc/ntt.cu", "circuits_halo2_tpu/ops/ntt.py:177 (XLA, no Pallas)"),
 )
-X0_X1 = ("x0a", "x0b", "x0c", "x1")
+X0_X1 = ("x0a", "x0b", "x0c", "x1")  # the kernels of every proving path (not the power chain)
 
 
 X4_CHILDREN = {  # argument of a child process: its X4 check
@@ -1881,7 +2049,8 @@ def run(spawn) -> int:
 
     wrappers = {"k1": PK.hash_batch, "k2": PK.permute, "k3": MK.segmented_scan,
                 "k4": PM.hash_batch_mxu, "k5": EXP.run, "k6": EXP.mxu_mul_once, "x4": EK.ec_fft,
-                "x0a": FT.mont_mul, "x0b": FT.linear, "x0c": FT.mont_pow, "x1": NTT.dit_stages}
+                "x0a": FT.mont_mul, "x0b": FT.linear, "x0c": FT.inv_mont, "x0c_pow": FT.mont_pow,
+                "x1": NTT.ntt_passes}
     launches = {}
     for w in wrappers.values():
         w.launches = 0
@@ -1891,7 +2060,8 @@ def run(spawn) -> int:
     full_width_downsize(device, rng, circuit)
     northstar(device)
     launches.update(k1=PK.hash_batch.launches, k3=MK.segmented_scan.launches,
-                    x4=EK.ec_fft.launches, **{key: wrappers[key].launches for key in X0_X1})
+                    x4=EK.ec_fft.launches, x0c_pow=FT.mont_pow.launches,
+                    **{key: wrappers[key].launches for key in X0_X1})
     log("proving-path launches: " + ", ".join(f"{key.upper()} {launches[key]}"
                                               for key in ("k1", "k3", "x4", *X0_X1)))
 
@@ -1904,7 +2074,7 @@ def run(spawn) -> int:
         counts = {key: w.launches + children.get(key, 0) for key, w in wrappers.items()}
         log(f"{name} launches: " + ", ".join(f"{key.upper()} {c}" for key, c in counts.items()))
         require(all(counts[key] for key in kernels), f"{name}: a kernel of its path never launched")
-        for key in kernels:
+        for key in (*kernels, "x0c_pow"):
             launches[key] += counts[key]
 
     counted("batch-prover", ("k3", *X0_X1),
@@ -1934,7 +2104,9 @@ def run(spawn) -> int:
     launches.update({key: wrappers[key].launches for key in ("k2", "k4", "k5", "k6")})
     log(f"Poseidon engine launches: K2 {launches['k2']}, K4 {launches['k4']}, "
         f"K5 {launches['k5']}, K6 {launches['k6']}")
-    idle = [key for key, count in launches.items() if not count]
+    # the power chain is on no path: only inv_mont called it, and the
+    # inversion has its own kernel now; its count is reported as it is
+    idle = [key for key, count in launches.items() if not count and key != "x0c_pow"]
     require(not idle, f"a kernel of its path never launched: {idle}")
 
     with Phase("kernel vs plain timings"):

@@ -56,7 +56,9 @@ the warm repeats) and, from two more proves outside the timed ones,
 with ``CIRCUITS_PROVE_TRACE`` on, whose clock synchronises the card at each
 phase) and, from one under ``torch.profiler``, ``device_busy_s``,
 ``idle_share`` (1 - busy over the warm median), ``launches`` (CUDA kernels)
-and ``top_kernels``; ``profiler`` says where that profile is missing.
+``top_kernels`` and ``hand_kernels`` (each of the port's hand kernels with
+its launches and device seconds); ``profiler`` says where that profile is
+missing.
 
 A failing stage prints its traceback, the other stages still run, and the
 process exits 1. Without a card and without ``--device cpu`` it raises.
@@ -102,6 +104,13 @@ STAGES = ("build", "msm", "ntt", "keygen", "prove", "verify", "throughput",
 K11_STAGES = ("keygen", "prove", "verify", "throughput", "batch_throughput")
 DEFAULT_STAGES = "build,keygen,prove,verify"
 TOP_KERNELS = 3
+# The port's hand kernels, by the name of their CUDA function (csrc/*.cu)
+HAND_KERNELS = (("K1", "poseidon_sponge_kernel"), ("K2", "poseidon_permute_kernel"),
+                ("K3", "msm_scan_kernel"), ("K4", "poseidon_mxu_sponge_kernel"),
+                ("K5/K6", "poseidon_mxu_probe_kernel"), ("X4", "ec_fft_stage_kernel"),
+                ("X4 scale", "ec_fft_scale_kernel"), ("X0a", "mont_mul_kernel"),
+                ("X0b", "linear_kernel"), ("X0c", "inv_kernel"), ("chain", "pow_kernel"),
+                ("X1", "ntt_pass_kernel"))
 PHASE_LINE = re.compile(r"\[prove\] (.+): ([0-9.]+)s$")
 
 
@@ -270,9 +279,11 @@ def traced(fn):
 
 
 def profile_summary(events, wall_s: float) -> dict:
-    """Device busy time, idle share over ``wall_s``, kernel count and the
-    kernels with the most device time, from the profiler's raw events (each
-    with ``name()``, ``device_type()``, ``start_ns()`` and ``end_ns()``)."""
+    """Device busy time, idle share over ``wall_s``, kernel count, the
+    kernels with the most device time, and every hand kernel's launches and
+    device seconds (``HAND_KERNELS``, 0 where it did not run), from the
+    profiler's raw events (each with ``name()``, ``device_type()``,
+    ``start_ns()`` and ``end_ns()``)."""
     from torch.autograd import DeviceType
 
     device = [(e.start_ns(), e.end_ns(), e.name()) for e in events
@@ -291,11 +302,18 @@ def profile_summary(events, wall_s: float) -> dict:
         entry[0] += 1
         entry[1] += stop - start
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
+    hand = []
+    for key, fn in HAND_KERNELS:
+        pattern = re.compile(r"(?:^|[\s:])" + fn + r"\b")
+        hits = [entry for name, entry in per_name.items() if pattern.search(name)]
+        hand.append({"kernel": key, "name": fn, "launches": sum(h[0] for h in hits),
+                     "device_s": sum(h[1] for h in hits) / 1e9})
     busy = busy_ns / 1e9
     return {"profiler": "torch.profiler", "device_busy_s": busy, "idle_share": 1.0 - busy / wall_s,
             "launches": len(kernels),
             "top_kernels": [{"name": name[:160], "launches": count, "device_s": ns / 1e9}
-                            for name, (count, ns) in top]}
+                            for name, (count, ns) in top],
+            "hand_kernels": hand}
 
 
 def device_profile(bench: Bench, fn, wall_s: float) -> dict:

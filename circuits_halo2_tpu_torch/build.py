@@ -24,7 +24,8 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
-CUDA_SOURCES = ("poseidon.cu", "msm_scan.cu", "poseidon_mxu.cu", "ec_fft.cu", "field_ops.cu")
+CUDA_SOURCES = ("poseidon.cu", "msm_scan.cu", "poseidon_mxu.cu", "ec_fft.cu", "field_ops.cu",
+                "ntt.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -112,13 +113,16 @@ def cuda_library() -> ctypes.CDLL:
             lib.field_mont_mul_cuda.argtypes = [vp, vp, vp, vp, i32, i32, vp]
             lib.field_linear_cuda.argtypes = [i32, vp, vp, vp, vp, i32, i32, vp]
             lib.field_pow_cuda.argtypes = [vp, vp, vp, i32, vp, i32, i32, vp]
-            lib.ntt_stages_cuda.argtypes = [vp, vp, i64, i32, vp]
+            lib.field_inv_cuda.argtypes = [vp, vp, vp, i32, vp, i32, vp]
+            lib.ntt_cuda.argtypes = [vp, vp, vp, vp, vp, i32, vp, i32, i64, i64, i32, vp]
+            lib.ntt_plan_cuda.argtypes = [i64, i32, vp]
             for fn in (lib.poseidon_set_constants, lib.poseidon_hash_batch_cuda,
                        lib.poseidon_permute_cuda, lib.msm_scan_cuda,
                        lib.poseidon_mxu_set_constants, lib.poseidon_mxu_hash_batch_cuda,
                        lib.poseidon_mxu_probe_cuda, lib.ec_fft_stage_cuda,
                        lib.ec_fft_scale_cuda, lib.field_mont_mul_cuda, lib.field_linear_cuda,
-                       lib.field_pow_cuda, lib.ntt_stages_cuda):
+                       lib.field_pow_cuda, lib.field_inv_cuda, lib.ntt_cuda,
+                       lib.ntt_plan_cuda):
                 fn.restype = ctypes.c_int
             _cuda = lib
     return _cuda

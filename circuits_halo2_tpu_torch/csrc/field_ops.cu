@@ -1,31 +1,36 @@
-// X0 and X1: the prover's field arithmetic and NTT stage on the card, one
-// thread an element (a butterfly for X1), reading and writing the port's
-// (16, *batch) int64 16-bit limb tensors in place of any conversion pass.
+// X0: the prover's field arithmetic on the card, one thread an element,
+// reading and writing the port's (16, *batch) int64 16-bit limb tensors in
+// place of any conversion pass. (X1, the NTT, is csrc/ntt.cu.)
 //
-// Replaces the JAX package's compiled (XLA, not Pallas) field arithmetic and
-// transform, which its prover runs as jitted programs:
+// Replaces the JAX package's compiled (XLA, not Pallas) field arithmetic,
+// which its prover runs as jitted programs:
 // - X0a field_mont_mul_cuda: circuits_halo2_tpu/ops/field_jax.py::mont_mul
 //   (and mont_sqr, to_mont, from_mont, pow5, which call it);
 // - X0b field_linear_cuda: field_jax.py::add_mod, sub_mod, neg_mod, one
 //   kernel with an op code;
-// - X0c field_pow_cuda: field_jax.py::mont_pow (a lax.scan over the
-//   exponent's bits) and inv_mont, the Fermat inversion of
-//   utils/poly_device.py::batch_inv_dev;
-// - X1 ntt_stages_cuda: ops/ntt.py::_ntt_core_scan, the jitted scan over the
-//   radix-2 stages of _ntt_device, one launch a stage.
-// The plain torch versions are ops/field_torch.py's *_ref functions and
-// ops/ntt.py::ntt_ref; the per-thread code (csrc/field_ops.cuh) gives their
-// limbs exactly.
+// - X0c field_inv_cuda: field_jax.py::inv_mont, the Fermat inversion of
+//   utils/poly_device.py::batch_inv_dev, as a Bernstein-Yang divstep
+//   inversion (csrc/field_ops.cuh inv): 25 batches of 30 divsteps on
+//   signed 30-bit limbs, a fixed count, then one product by R^3;
+// - field_pow_cuda: field_jax.py::mont_pow (a lax.scan over the exponent's
+//   bits), the chain for any exponent, off the prover's path since the
+//   inversion has its own kernel.
+// The plain torch versions are ops/field_torch.py's *_ref functions (the
+// inversion's is mont_pow_ref(a, p - 2)); the per-thread code
+// (csrc/field_ops.cuh) gives their limbs exactly.
 //
 // What bounds them on the card. A product is 132 wide multiplies (64 word
 // products, 68 in the reduction) against 384 bytes of int64 limbs (two
 // operands in, one out; a broadcast operand is read once): at the H100's
 // 3.35 TB/s and about 8.4e12 wide multiplies a second, 115 ns of bytes for
-// 16 ns of multiplies a thousand elements, so X0a, X0b and X1 are bound by
-// the bytes of the int64-limb layout (four times those of 32-byte elements).
-// X0c is operations: about 380 products an element for an inversion, and
-// on the prover's path only a few elements (one a permutation set or
-// lookup), so a launch is one thread's dependent chain of 380 products.
+// 16 ns of multiplies a thousand elements, so X0a and X0b are bound by the
+// bytes of the int64-limb layout (four times those of 32-byte elements).
+// The inversion is operations, and on the prover's path only a few
+// elements (one a permutation set or lookup), so a launch is one thread's
+// dependent chain: the Fermat chain's 381 products (about 50,000 wide
+// multiplies) become 750 divsteps on two 32-bit words (about 17 word
+// operations each) and 25 matrix updates of four 9-limb numbers (94 wide
+// multiplies each, 2,350 in all), plus the product by R^3.
 //
 // Design: the simplest kernels that are right. Each thread computes its
 // operands' offsets from its batch index through the strides the wrapper
@@ -33,8 +38,7 @@
 // operand, so most calls decompose over one or two axes), loads 16 limbs an
 // operand with the carries between them propagated, runs the per-thread
 // code and stores 16 normalised limbs; consecutive threads touch
-// consecutive int64s of every limb row. The NTT runs its stages in place on
-// the bit-reversed copy the wrapper makes, one thread a butterfly.
+// consecutive int64s of every limb row.
 
 #include "field_ops.cuh"
 
@@ -46,8 +50,8 @@ using bn254::Fr;
 
 namespace {
 
-constexpr int THREADS = 256;      // X0a, X0b, X1
-constexpr int POW_THREADS = 128;  // X0c
+constexpr int THREADS = 256;      // X0a, X0b
+constexpr int POW_THREADS = 128;  // the chain and the inversion
 
 unsigned blocks(int64_t n, int threads) { return (unsigned)((n + threads - 1) / threads); }
 
@@ -77,11 +81,12 @@ pow_kernel(const int64_t* __restrict__ a, int64_t* __restrict__ out, fops::Shape
     if (t < n) fops::pow_thread<P>(a, out, s, sa, e, n, t);
 }
 
-__global__ void __launch_bounds__(THREADS)
-ntt_stage_kernel(int64_t* __restrict__ x, const int64_t* __restrict__ tw, uint32_t rows,
-                 int logn, int s) {
-    const uint32_t g = blockIdx.x * blockDim.x + threadIdx.x;
-    if (g < (rows << (logn - 1))) fops::ntt_thread(x, tw, rows, logn, s, g);
+template <class P>
+__global__ void __launch_bounds__(POW_THREADS)
+inv_kernel(const int64_t* __restrict__ a, int64_t* __restrict__ out, fops::Shape s,
+           fops::Strides sa, fops::Words r3, uint32_t n) {
+    const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t < n) fops::inv_thread<P>(a, out, s, sa, r3.w, n, t);
 }
 
 }  // namespace
@@ -145,19 +150,23 @@ extern "C" int field_pow_cuda(const int64_t* a, int64_t* out, const int64_t* met
     return (int)cudaGetLastError();
 }
 
-// Every stage of `rows` bit-reversed n = 2^logn point rows, in place on the
-// contiguous (16, rows, n) x, one launch a stage; tw (16, n - 1) contiguous.
-extern "C" int ntt_stages_cuda(int64_t* x, const int64_t* tw, int64_t rows, int logn,
-                               void* stream) {
-    if (logn < 1 || logn > 30 || rows < 1 || (rows << logn) >= ((int64_t)1 << 32))
+// r3: R^3 mod p as 8 little-endian words; meta as above, a given twice.
+extern "C" int field_inv_cuda(const int64_t* a, int64_t* out, const int64_t* meta, int nd,
+                              const uint32_t* r3, int field, void* stream) {
+    fops::Shape s;
+    fops::Strides sa, unused;
+    int64_t n;
+    if (!fops::collapse(meta, nd, s, sa, unused, n) || field < 0 || field > 1)
         return (int)cudaErrorInvalidValue;
-    const int64_t threads = rows << (logn - 1);
-    for (int s = 0; s < logn; ++s) {
-        ntt_stage_kernel<<<blocks(threads, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-            x, tw, (uint32_t)rows, logn, s);
-        const int err = (int)cudaGetLastError();
-        if (err) return err;
-    }
-    return 0;
+    if (n == 0) return 0;
+    const uint32_t m = (uint32_t)n;
+    fops::Words w;
+    for (int i = 0; i < 8; ++i) w.w[i] = r3[i];
+    const auto st = (cudaStream_t)stream;
+    if (field == 0)
+        inv_kernel<Fr><<<blocks(m, POW_THREADS), POW_THREADS, 0, st>>>(a, out, s, sa, w, m);
+    else
+        inv_kernel<Fq><<<blocks(m, POW_THREADS), POW_THREADS, 0, st>>>(a, out, s, sa, w, m);
+    return (int)cudaGetLastError();
 }
 #endif

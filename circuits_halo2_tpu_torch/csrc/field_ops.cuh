@@ -1,6 +1,7 @@
-// X0 and X1 for one CUDA thread: the prover's field arithmetic (Montgomery
-// product, add / sub / neg, the power chain of a Fermat inversion) and one
-// radix-2 butterfly, on the port's (16, *batch) int64 16-bit limb tensors.
+// X0 for one CUDA thread: the prover's field arithmetic (Montgomery
+// product, add / sub / neg, the power chain, and the inversion by
+// Bernstein-Yang divsteps) on the port's (16, *batch) int64 16-bit limb
+// tensors, and the limb load and store that X1 (csrc/ntt.cu) shares.
 //
 // Every function here gives what the plain torch version in
 // ops/field_torch.py gives, limb for limb, for any operands of value below
@@ -24,7 +25,11 @@
 // - pow: left-to-right square-and-multiply from 1 (Montgomery) over the
 //   exponent's bits, MSB first, each step the exact product above, so every
 //   intermediate is canonical and equals the plain loop's.
-// - butterfly: (u, v) -> (u + w v, u - w v), the plain stage's three calls.
+// - inv: a mod p by five conditional subtractions of p (2^256 < 6p), its
+//   inverse y by divsteps (below), then mont_mul(y, R^3 mod p). For a = x R
+//   that is x^-1 R; for any a it is R^2 / a mod p, which is what the plain
+//   chain mont_pow(a, p - 2) reaches (a^(p-2) R^-(p-3) = (a / R)^-1 R), and
+//   0 for a = 0 mod p, as the chain gives.
 //
 // Limbs are read as the value sum limb_i 2^(16 i) with the carries between
 // limbs propagated, so a limb outside [0, 2^16) is read as the plain
@@ -183,6 +188,11 @@ BN_HD void linear(int op, uint32_t r[8], const uint32_t a[8], const uint32_t b[8
         neg<P>(r, a);
 }
 
+// Eight words passed by value to a kernel (a constant such as R^3 mod p)
+struct Words {
+    uint32_t w[8];
+};
+
 // The exponent: its bits MSB first from bit nbits - 1 (nbits >= 1; the
 // plain loop runs over bin(e)[2:], one bit for e = 0).
 struct Exponent {
@@ -201,23 +211,201 @@ BN_HD void pow(uint32_t r[8], const uint32_t a[8], const Exponent& e) {
     }
 }
 
-// One radix-2 DIT butterfly in place: (u, v) -> (u + w v, u - w v)
-template <class P>
-BN_HD void butterfly(uint32_t u[8], uint32_t v[8], const uint32_t w[8]) {
-    uint32_t t[8];
-    mont_mul<P>(t, v, w);
-    bn254::sub<P>(v, u, t);
-    bn254::add<P>(u, u, t);
+// ---------------------------------------------------------------------------
+// The inversion: Bernstein and Yang, "Fast constant-time gcd computation
+// and modular inversion" (2019), as libsecp256k1's modinv32 implements it,
+// with the paper's divstep (delta starting at 1):
+//   (delta, f, g) -> (1 - delta, g, (g - f) / 2)        if delta > 0, g odd
+//                    (1 + delta, f, (g + (g mod 2) f) / 2)  otherwise,
+// from f = p, g = a (0 <= a < p). Numbers are 9 signed 30-bit limbs in
+// 32-bit words (sum v_i 2^(30 i), limbs 0-7 in [0, 2^30) after an update,
+// the top one signed). A batch runs 30 divsteps on the low words of f and g
+// alone, tracking the 2 x 2 matrix T (entries in [-2^30, 2^30]) with
+// 2^30 (f', g') = T (f, g); then (f, g) <- T (f, g) / 2^30 exactly, and
+// (d, e) <- T (d, e) / 2^30 mod p, where d a = f and e a = g (mod p) hold
+// throughout (d, e in (-2p, p)). By the paper's Theorem 11.2, g is 0 after
+// m >= (49 d + 57) / 17 divsteps for f^2 + 4 g^2 <= 5 2^(2d), d = 254 here
+// (p < 2^254 for Fr and Fq): m >= 735.5, so 25 batches of 30 (750), a fixed
+// count, with no data-dependent branch (masks, as the Fermat chain had a
+// fixed chain). Then f = +-1 and d = +-a^-1.
+// ---------------------------------------------------------------------------
+
+constexpr int DIVSTEP_BATCHES = 25;
+constexpr int32_t M30 = (int32_t)(0xffffffffu >> 2);
+
+struct S30 {
+    int32_t v[9];
+};
+
+struct Trans {
+    int32_t u, v, q, r;
+};
+
+// 8 words (a value below 2^256) -> 9 limbs of 30 bits
+BN_HD void to_s30(S30& r, const uint32_t w[8]) {
+    uint64_t acc = 0;
+    int bits = 0, k = 0;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+        if (bits < 30 && k < 8) {
+            acc |= (uint64_t)w[k++] << bits;
+            bits += 32;
+        }
+        r.v[i] = (int32_t)(acc & (uint64_t)M30);
+        acc >>= 30;
+        bits -= 30;
+    }
 }
 
-// Butterfly j of stage s (half = 2^s) of an n-point row: its two positions
-// in the row, q and q + half, and its twiddle's column in the (16, n - 1)
-// table that holds stage s at columns half - 1 .. 2 half - 2.
-BN_HD void butterfly_at(uint32_t j, int s, uint32_t& q, uint32_t& tw) {
-    const uint32_t half = 1u << s;
-    const uint32_t k = j & (half - 1);
-    q = ((j >> s) << (s + 1)) + k;
-    tw = half - 1 + k;
+// 9 limbs of 30 bits (limbs in [0, 2^30), a value below 2^256) -> 8 words
+BN_HD void from_s30(uint32_t w[8], const S30& a) {
+    uint64_t acc = 0;
+    int bits = 0, k = 0;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+        acc |= (uint64_t)(uint32_t)a.v[i] << bits;
+        bits += 30;
+        if (bits >= 32 && k < 8) {
+            w[k++] = (uint32_t)acc;
+            acc >>= 32;
+            bits -= 32;
+        }
+    }
+}
+
+// 30 divsteps on the low words f0 (odd) and g0; eta = -delta. Returns the
+// new eta, the matrix in t.
+BN_HD int32_t divsteps_30(int32_t eta, uint32_t f0, uint32_t g0, Trans& t) {
+    uint32_t u = 1, v = 0, q = 0, r = 1, f = f0, g = g0;
+#pragma unroll 6
+    for (int i = 0; i < 30; ++i) {
+        const uint32_t c1 = (uint32_t)(eta >> 31);  // all ones where delta > 0
+        const uint32_t c2 = (uint32_t)0 - (g & 1u);  // all ones where g is odd
+        const uint32_t x = (f ^ c1) - c1, y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+        g += x & c2;  // g - f or g + f where g is odd
+        q += y & c2;
+        r += z & c2;
+        const uint32_t swap = c1 & c2;
+        eta = (int32_t)(((uint32_t)eta ^ swap) - 1u + (swap & 1u));  // ~eta, or eta - 1
+        f += g & swap;  // f + (g - f) = g
+        u += q & swap;
+        v += r & swap;
+        g >>= 1;
+        u <<= 1;
+        v <<= 1;
+    }
+    t.u = (int32_t)u;
+    t.v = (int32_t)v;
+    t.q = (int32_t)q;
+    t.r = (int32_t)r;
+    return eta;
+}
+
+// (d, e) <- T (d, e) / 2^30 mod p, kept in (-2p, p): multiples of p added
+// so that the low 30 bits vanish, starting from [u, q] where d < 0 and
+// [v, r] where e < 0 (libsecp256k1's update_de_30)
+BN_HD void update_de(S30& d, S30& e, const Trans& t, const S30& p, uint32_t p_inv30) {
+    const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+    int32_t md = (t.u & sd) + (t.v & se);
+    int32_t me = (t.q & sd) + (t.r & se);
+    int64_t cd = (int64_t)t.u * d.v[0] + (int64_t)t.v * e.v[0];
+    int64_t ce = (int64_t)t.q * d.v[0] + (int64_t)t.r * e.v[0];
+    md -= (int32_t)((p_inv30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)M30);
+    me -= (int32_t)((p_inv30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)M30);
+    cd += (int64_t)p.v[0] * md;
+    ce += (int64_t)p.v[0] * me;
+    cd >>= 30;
+    ce >>= 30;
+#pragma unroll
+    for (int i = 1; i < 9; ++i) {
+        cd += (int64_t)t.u * d.v[i] + (int64_t)t.v * e.v[i] + (int64_t)p.v[i] * md;
+        ce += (int64_t)t.q * d.v[i] + (int64_t)t.r * e.v[i] + (int64_t)p.v[i] * me;
+        d.v[i - 1] = (int32_t)cd & M30;
+        e.v[i - 1] = (int32_t)ce & M30;
+        cd >>= 30;
+        ce >>= 30;
+    }
+    d.v[8] = (int32_t)cd;
+    e.v[8] = (int32_t)ce;
+}
+
+// (f, g) <- T (f, g) / 2^30, exact
+BN_HD void update_fg(S30& f, S30& g, const Trans& t) {
+    int64_t cf = (int64_t)t.u * f.v[0] + (int64_t)t.v * g.v[0];
+    int64_t cg = (int64_t)t.q * f.v[0] + (int64_t)t.r * g.v[0];
+    cf >>= 30;
+    cg >>= 30;
+#pragma unroll
+    for (int i = 1; i < 9; ++i) {
+        cf += (int64_t)t.u * f.v[i] + (int64_t)t.v * g.v[i];
+        cg += (int64_t)t.q * f.v[i] + (int64_t)t.r * g.v[i];
+        f.v[i - 1] = (int32_t)cf & M30;
+        g.v[i - 1] = (int32_t)cg & M30;
+        cf >>= 30;
+        cg >>= 30;
+    }
+    f.v[8] = (int32_t)cf;
+    g.v[8] = (int32_t)cg;
+}
+
+// d in (-2p, p) -> d mod p in [0, p), negated first where sign < 0
+// (libsecp256k1's normalize_30)
+BN_HD void normalize(S30& d, int32_t sign, const S30& p) {
+    int32_t add = d.v[8] >> 31;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) d.v[i] += p.v[i] & add;
+    const int32_t neg = sign >> 31;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) d.v[i] = (d.v[i] ^ neg) - neg;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        d.v[i + 1] += d.v[i] >> 30;
+        d.v[i] &= M30;
+    }
+    add = d.v[8] >> 31;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) d.v[i] += p.v[i] & add;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        d.v[i + 1] += d.v[i] >> 30;
+        d.v[i] &= M30;
+    }
+}
+
+// y = a^-1 mod p (0 for a = 0) for a < p, by DIVSTEP_BATCHES batches
+template <class P>
+BN_HD void divstep_inverse(uint32_t y[8], const uint32_t a[8]) {
+    const uint32_t pw[8] = {P::mod(0), P::mod(1), P::mod(2), P::mod(3),
+                            P::mod(4), P::mod(5), P::mod(6), P::mod(7)};
+    S30 p, f, g, d, e;
+    to_s30(p, pw);
+    to_s30(g, a);
+    f = p;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) d.v[i] = e.v[i] = 0;
+    e.v[0] = 1;
+    const uint32_t p_inv30 = (0u - P::INV) & (uint32_t)M30;  // p^-1 mod 2^30
+    int32_t eta = -1;
+    for (int b = 0; b < DIVSTEP_BATCHES; ++b) {
+        Trans t;
+        eta = divsteps_30(eta, (uint32_t)f.v[0], (uint32_t)g.v[0], t);
+        update_de(d, e, t, p, p_inv30);
+        update_fg(f, g, t);
+    }
+    normalize(d, f.v[8], p);
+    from_s30(y, d);
+}
+
+// r = R^2 / a mod p (the Montgomery inverse of a = x R: x^-1 R), 0 for
+// a = 0 mod p; a any value below 2^256, r3 = R^3 mod p
+template <class P>
+BN_HD void inv(uint32_t r[8], const uint32_t a[8], const uint32_t r3[8]) {
+    uint32_t x[8], y[8];
+    bn254::copy(x, a);
+#pragma unroll
+    for (int i = 0; i < 5; ++i) bnf::sub_if_ge<P>(x, x);
+    divstep_inverse<P>(y, x);
+    mont_mul<P>(r, y, r3);
 }
 
 // ---------------------------------------------------------------------------
@@ -261,22 +449,15 @@ BN_HD void pow_thread(const int64_t* a, int64_t* out, const Shape& s, const Stri
     store(out, n, t, r);
 }
 
-// Butterfly g of stage s over `rows` bit-reversed n = 2^logn point rows,
-// in place on the contiguous (16, rows, n) x; tw the (16, n - 1) table.
-BN_HD void ntt_thread(int64_t* x, const int64_t* tw, uint32_t rows, int logn, int s,
-                      uint32_t g) {
-    const uint32_t half_n = 1u << (logn - 1);
-    uint32_t q, w;
-    butterfly_at(g & (half_n - 1), s, q, w);
-    const int64_t limb = (int64_t)rows << logn;
-    const int64_t o = ((int64_t)(g >> (logn - 1)) << logn) + q;
-    uint32_t u[8], v[8], wt[8];
-    load(u, x, limb, o);
-    load(v, x, limb, o + (1 << s));
-    load(wt, tw, (int64_t)(2 * half_n - 1), w);
-    butterfly<bn254::Fr>(u, v, wt);
-    store(x, limb, o, u);
-    store(x, limb, o + (1 << s), v);
+template <class P>
+BN_HD void inv_thread(const int64_t* a, int64_t* out, const Shape& s, const Strides& sa,
+                      const uint32_t r3[8], uint32_t n, uint32_t t) {
+    int64_t oa, unused;
+    offsets(s, sa, sa, t, oa, unused);
+    uint32_t x[8], r[8];
+    load(x, a, sa.limb, oa);
+    inv<P>(r, x, r3);
+    store(out, n, t, r);
 }
 
 }  // namespace fops

@@ -618,7 +618,7 @@ def _fold_terms(dom, terms, y_m):
     for _, term in terms:
         term = term.expand(shape)
         numer = term if numer is None else FT.add_mod(FT.mont_mul(numer, y_m), term)
-    return dom.extended_to_coeff(dom.divide_by_vanishing(numer))
+    return dom.vanishing_to_coeff(numer)
 
 
 def transform_cols(dom, lagr):

@@ -12,13 +12,14 @@ canonical limbs (< p); kernels choose their own layout and their wrappers
 convert at this boundary.
 
 On a CUDA tensor the product (and ``mont_sqr``, ``to_mont``, ``from_mont``,
-``pow5``, which call it), add / sub / neg and the power chain of the Fermat
-inversion each launch one hand-written kernel of ``csrc/field_ops.cu``
-(X0a ``mont_mul``, X0b ``linear``, X0c ``mont_pow``), which reads the
-operands through their strides (a broadcast or strided view is never
-materialised) and writes a contiguous (16, *batch) result; a failed build
-or launch raises. On a CPU tensor, or inside ``plain()``, they run the
-plain versions (``*_ref``), which give the same limbs.
+``pow5``, which call it), add / sub / neg, the inversion and the power
+chain each launch one hand-written kernel of ``csrc/field_ops.cu`` (X0a
+``mont_mul``, X0b ``linear``, X0c ``inv_mont``, a divstep inversion, and
+``mont_pow``), which reads the operands through their strides (a broadcast
+or strided view is never materialised) and writes a contiguous (16, *batch)
+result; a failed build or launch raises. On a CPU tensor, or inside
+``plain()``, they run the plain versions (``*_ref``; the inversion's is the
+Fermat chain ``mont_pow_ref(a, p - 2)``), which give the same limbs.
 
 The plain multiply never builds the (16, 16, *batch) outer product: product
 columns are accumulated one limb row at a time (``addcmul_``), and the
@@ -240,7 +241,7 @@ def mont_pow_ref(a: torch.Tensor, exponent: int, spec: FieldSpec = FR) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# Dispatch: the kernels (X0a-X0c, csrc/field_ops.cu) on a CUDA tensor, the
+# Dispatch: the kernels (X0, csrc/field_ops.cu) on a CUDA tensor, the
 # plain versions on a CPU tensor or inside ``plain()``
 # ---------------------------------------------------------------------------
 
@@ -402,8 +403,8 @@ def pow5(a: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
 
 
 def mont_pow(a: torch.Tensor, exponent: int, spec: FieldSpec = FR) -> torch.Tensor:
-    """Fixed-exponent power by left-to-right square-and-multiply; X0c on a
-    CUDA tensor (the whole chain in one launch, 0 <= exponent < 2^256)."""
+    """Fixed-exponent power by left-to-right square-and-multiply; on a CUDA
+    tensor the whole chain in one launch (0 <= exponent < 2^256)."""
     if not on_card(a):
         return mont_pow_ref(a, exponent, spec)
     if not 0 <= exponent < 1 << 256:
@@ -422,8 +423,29 @@ mont_pow.launches = 0
 
 
 def inv_mont(a: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
-    """Inverse via Fermat: a^(p-2). Zero maps to zero."""
-    return mont_pow(a, spec.mod_int - 2, spec)
+    """The Montgomery inverse, the Fermat chain's result a^(p-2) (R^2 / a
+    mod p for any limbs below 2^256; zero maps to zero). X0c on a CUDA
+    tensor: a Bernstein-Yang divstep inversion, a fixed 750 divsteps (the
+    whole batch in one launch); on a CPU tensor the plain chain."""
+    if not on_card(a):
+        return mont_pow_ref(a, spec.mod_int - 2, spec)
+    lib, out, meta, field, stream = _launch_args("inv_mont", spec, a, a)
+    if out.numel():
+        inv_mont.launches += 1
+        build.check(lib.field_inv_cuda(a.data_ptr(), out.data_ptr(), meta, out.dim() - 1,
+                                       _r3_words(spec.mod_int), field, stream), "field_inv_cuda")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _r3_words(mod: int):
+    """R^3 mod p as a C array of 8 words, the factor that restores the
+    Montgomery form after X0c's inversion (made once a field)."""
+    r3 = (1 << 768) % mod
+    return (ctypes.c_uint32 * 8)(*((r3 >> (32 * i)) & 0xFFFFFFFF for i in range(8)))
+
+
+inv_mont.launches = 0
 
 
 def is_zero(a: torch.Tensor) -> torch.Tensor:

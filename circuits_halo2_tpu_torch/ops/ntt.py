@@ -3,21 +3,30 @@
 Counterpart of ``circuits_halo2_tpu/ops/ntt.py``: ``ntt(a, omega)`` computes
 out[i] = sum_j a[j]·omega^(i·j) along the last axis of a ``(16, *batch, n)``
 Montgomery limb tensor; ``intt`` is ``ntt(a, omega^-1)`` scaled by n^-1.
-The device form is iterative radix-2 DIT: one bit-reversal gather, then
-log2(n) butterfly stages. On a CUDA tensor the stages are X1
-(``csrc/field_ops.cu``, ``dit_stages``): one launch a stage, one thread a
-butterfly, in place on the gathered copy against a table of every stage's
-twiddles. On a CPU tensor ``ntt_ref`` runs them as plain torch, each stage a
-reshape plus one batched mont_mul against that stage's twiddle table and
-the add and subtract; the limbs are the same.
+
+``transform`` is the general entry the polynomial domain uses: the input may
+hold fewer lanes than the transform (the rest taken as zero), and a per-lane
+(or constant) factor may be applied to the input and to the output, so that
+a coset or n^-1 scale costs no pass of its own. On a CUDA tensor it is X1
+(``csrc/ntt.cu``, ``ntt_passes``): the transform in one launch up to 2^11
+points and two above (four-step, sub-transforms in shared memory, natural
+order in and out), against one cached table of omega^e in packed 32-bit
+words. On a CPU tensor, or inside ``field_torch.plain()``,
+``transform_ref`` runs the unfused sequence in plain torch: the input factor
+(``mont_mul``), the zero lanes, ``ntt_ref`` (a bit-reversal gather and
+log2(n) radix-2 DIT stages, each a reshape plus one batched mont_mul against
+that stage's twiddles and the add and subtract) and the output factor. Every
+output is canonical, so the limbs are the same.
 
 With a mesh active (``parallel/auto``) a transform of n >= 2^12 points
 (and n >= size^2) runs as the four-step ``parallel/ntt_sharded``, the JAX
-package's routing; the result is the same.
+package's routing, with the factors as X0a launches around it; the result
+is the same.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -68,11 +77,60 @@ def omega_for_k(k: int) -> int:
     return F.fr_pow(F.FR_ROOT_OF_UNITY, 1 << (F.FR_TWO_ADICITY - k))
 
 
+# ---------------------------------------------------------------------------
+# Factors and tables in X1's layout: packed (L, 8) 32-bit words
+# ---------------------------------------------------------------------------
+
+class Lanes:
+    """Montgomery factors, one a lane or (with one lane) a constant, that
+    ``transform`` applies on load or on store: ``limbs`` (16, L) for the
+    plain version, ``words`` their packed (L, 8) form for X1 (made on first
+    use, then kept)."""
+
+    def __init__(self, limbs: torch.Tensor):
+        self.limbs = limbs
+        self._words = None
+
+    @property
+    def words(self) -> torch.Tensor:
+        if self._words is None:  # one element's 32 bytes contiguous
+            self._words = FT.limbs_to_words(self.limbs, 0).T.contiguous()
+        return self._words
+
+    def lanes(self, count: int, ndim: int) -> torch.Tensor:
+        """The first ``count`` factors (the constant for one lane) shaped
+        (16, 1, ..., count) against an ``ndim``-axis tensor."""
+        t = self.limbs if self.limbs.shape[1] == 1 else self.limbs[:, :count]
+        return t.reshape((FT.NLIMBS,) + (1,) * (ndim - 2) + (-1,))
+
+
 @functools.lru_cache(maxsize=64)
-def _tables(n: int, omega: int, device: str):
-    """Bit-reversal permutation, and every stage's Montgomery twiddles in one
-    (16, n - 1) table, stage s (half = 2^s) at columns half - 1 .. 2 half - 2
-    (what X1 reads), with the per-stage (16, half) views of it."""
+def const_lanes(value: int, device: str) -> Lanes:
+    """The constant ``value`` (an Fr element, made Montgomery) as ``Lanes``."""
+    return Lanes(FT.const_tensor(FT.FR.const(value), device, 2))
+
+
+def _powers_words(n: int, omega: int) -> np.ndarray:
+    """(n, 8) int32 words of omega^e R mod p, e < n."""
+    p = F.FR_MOD
+    v, vals = (1 << 256) % p, []
+    for _ in range(n):
+        vals.append(v.to_bytes(32, "little"))
+        v = v * omega % p
+    return np.frombuffer(bytearray(b"".join(vals)), dtype="<i4").reshape(n, 8)
+
+
+@functools.lru_cache(maxsize=32)
+def _powers(n: int, omega: int, device: str) -> torch.Tensor:
+    """X1's table: omega^e for e < n, packed, on ``device`` (cached)."""
+    return torch.as_tensor(_powers_words(n, omega), device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _ref_tables(n: int, omega: int, device: str):
+    """``ntt_ref``'s tables: the bit-reversal permutation and each stage's
+    Montgomery twiddles, stage s (half = 2^s) a (16, half) view of one
+    (16, n - 1) table at columns half - 1 .. 2 half - 2."""
     rev = torch.as_tensor(bit_reverse_indices(n), device=device)
     ws = []
     for s in range(n.bit_length() - 1):
@@ -83,14 +141,24 @@ def _tables(n: int, omega: int, device: str):
             stage[j] = stage[j - 1] * step % F.FR_MOD
         ws += stage
     flat = torch.as_tensor(FT.to_mont_limbs(ws), device=device)
-    tws = [flat[:, (1 << s) - 1 : (2 << s) - 1] for s in range(n.bit_length() - 1)]
-    return rev, flat, tws
+    return rev, [flat[:, (1 << s) - 1 : (2 << s) - 1] for s in range(n.bit_length() - 1)]
 
+
+# ---------------------------------------------------------------------------
+# The transforms
+# ---------------------------------------------------------------------------
 
 # The JAX package's threshold, so that the same transforms shard: below it
 # the all-to-all and the gathers are judged to cost more than one device
 # doing the whole transform (not measured on the port).
 SHARD_THRESHOLD = 1 << 12
+
+# X1 runs one pass (whole rows in shared memory, a block's or a cluster's)
+# up to 2^11 points, the most a block's shared memory holds with every
+# stage's twiddles, and two passes of at most 2^11-point sub-transforms up
+# to 2^22 (csrc/ntt.cu's constants of the same names).
+ONE_PASS_MAX_LOG = 11
+MAX_LOGN = 22
 
 
 def _shard_mesh(n: int):
@@ -105,38 +173,70 @@ def _shard_mesh(n: int):
     return mesh if ntt_sharded.split(n, mesh.size) is not None else None
 
 
-def ntt(a: torch.Tensor, omega: int) -> torch.Tensor:
-    """NTT along the last axis of a (16, *batch, n) Montgomery limb tensor;
-    over the active mesh when ``_shard_mesh`` gives one."""
-    mesh = _shard_mesh(int(a.shape[-1]))
+def transform(a: torch.Tensor, omega: int, n: int | None = None, in_scale: Lanes | None = None,
+              out_scale: Lanes | None = None) -> torch.Tensor:
+    """out[k] = so(k) · sum_j si(j)·a[j]·omega^(j k), k < n, along the last
+    axis of a (16, *batch, n_in) Montgomery limb tensor, n_in <= n (lanes
+    n_in .. n - 1 taken as zero; n defaults to n_in), si / so the factors of
+    ``in_scale`` / ``out_scale`` (1 where None). X1 on a CUDA tensor, over
+    the active mesh when ``_shard_mesh`` gives one."""
+    n = int(a.shape[-1]) if n is None else int(n)
+    mesh = _shard_mesh(n)
     if mesh is not None:
         from ..parallel import ntt_sharded
 
-        return ntt_sharded.ntt_sharded_batched(mesh, a, omega)
-    return _ntt_device(a, omega)
+        return _unfused(a, n, in_scale, out_scale,
+                        lambda x: ntt_sharded.ntt_sharded_batched(mesh, x, omega))
+    if not FT.on_card(a):
+        return transform_ref(a, omega, n, in_scale, out_scale)
+    return ntt_passes(a, omega, n, in_scale, out_scale)
+
+
+def ntt(a: torch.Tensor, omega: int) -> torch.Tensor:
+    """NTT along the last axis of a (16, *batch, n) Montgomery limb tensor;
+    over the active mesh when ``_shard_mesh`` gives one."""
+    return transform(a, omega)
+
+
+def intt(a: torch.Tensor, omega: int) -> torch.Tensor:
+    """Inverse NTT (the n^-1 scale applied as the output is stored)."""
+    n = int(a.shape[-1])
+    return transform(a, F.fr_inv(omega), out_scale=const_lanes(F.fr_inv(n), str(a.device)))
 
 
 def _ntt_device(a: torch.Tensor, omega: int) -> torch.Tensor:
-    """The single-device transform (the body of ``ntt``): X1 on a CUDA
-    tensor, ``ntt_ref`` on a CPU tensor."""
+    """The single-device transform: X1 on a CUDA tensor, ``ntt_ref`` on a
+    CPU tensor (``parallel/ntt_sharded``'s local blocks)."""
     if not FT.on_card(a):
         return ntt_ref(a, omega)
-    n = int(a.shape[-1])
-    if a.dtype != FT.DTYPE or a.dim() < 2 or a.shape[0] != FT.NLIMBS or n & (n - 1) or n < 1:
-        raise ValueError("ntt: a must be (16, ..., n) int64 limbs, n a power of two")
-    build.cuda_library()
-    rev, flat, _ = _tables(n, omega, str(a.device))
-    x = a.index_select(-1, rev)
-    if n > 1 and x.numel():
-        dit_stages(x, flat)
+    return ntt_passes(a, omega, int(a.shape[-1]))
+
+
+def _unfused(a, n, in_scale, out_scale, core):
+    """The factors as products around ``core``, the zero lanes as padding."""
+    if in_scale is not None:
+        a = FT.mont_mul(a, in_scale.lanes(int(a.shape[-1]), a.dim()))
+    if n > a.shape[-1]:
+        a = torch.nn.functional.pad(a, (0, n - int(a.shape[-1])))
+    x = core(a)
+    if out_scale is not None:
+        x = FT.mont_mul(x, out_scale.lanes(n, x.dim()))
     return x
+
+
+@FT.plain_version
+def transform_ref(a: torch.Tensor, omega: int, n: int | None = None,
+                  in_scale: Lanes | None = None, out_scale: Lanes | None = None) -> torch.Tensor:
+    """``transform`` in plain torch, on any device: the unfused sequence."""
+    n = int(a.shape[-1]) if n is None else int(n)
+    return _unfused(a, n, in_scale, out_scale, lambda x: ntt_ref(x, omega))
 
 
 @FT.plain_version
 def ntt_ref(a: torch.Tensor, omega: int) -> torch.Tensor:
     """The plain torch single-device transform, on any device."""
     n = int(a.shape[-1])
-    rev, _, tws = _tables(n, omega, str(a.device))
+    rev, tws = _ref_tables(n, omega, str(a.device))
     x = a.index_select(-1, rev)
     lead = x.shape[:-1]
     for s, tw in enumerate(tws):
@@ -148,26 +248,59 @@ def ntt_ref(a: torch.Tensor, omega: int) -> torch.Tensor:
     return x
 
 
-def dit_stages(x: torch.Tensor, tw: torch.Tensor) -> None:
-    """X1: every radix-2 DIT stage of the bit-reversed rows of the contiguous
-    (16, *lead, n) ``x``, in place on the card, one launch a stage;
-    ``tw`` is ``_tables``' (16, n - 1) table."""
-    n = int(x.shape[-1])
-    logn = n.bit_length() - 1
-    if not x.is_contiguous() or tw.shape != (FT.NLIMBS, n - 1) or not tw.is_contiguous():
-        raise ValueError("dit_stages: x and tw must be contiguous, tw (16, n - 1)")
+def _factor(scale: Lanes | None, count: int, device) -> tuple[int, int]:
+    """(pointer, step) of a factor for the kernel: step 0 for a constant,
+    1 per lane; (0, 0) for none."""
+    if scale is None:
+        return 0, 0
+    w = scale.words
+    if w.device != device or 1 < w.shape[0] < count:
+        raise ValueError(f"ntt_passes: {w.shape[0]} factors on {w.device} for {count} lanes "
+                         f"on {device}")
+    return w.data_ptr(), int(w.shape[0] != 1)
+
+
+def ntt_passes(a: torch.Tensor, omega: int, n: int, in_scale: Lanes | None = None,
+               out_scale: Lanes | None = None) -> torch.Tensor:
+    """X1: ``transform`` of every row of the (16, *batch, n_in) limbs ``a`` on
+    the card, in one launch for n <= 2^ONE_PASS_MAX_LOG and two above
+    (``csrc/ntt.cu``; a strided ``a`` is made contiguous first). Returns a
+    new contiguous (16, *batch, n) tensor; ``launches`` counts the launches."""
+    n_in = int(a.shape[-1])
+    if a.dtype != FT.DTYPE or a.dim() < 2 or a.shape[0] != FT.NLIMBS:
+        raise ValueError("ntt: a must be (16, ..., n) int64 limbs")
+    if n < 1 or n & (n - 1) or n > 1 << MAX_LOGN or not 1 <= n_in <= n:
+        raise ValueError(f"ntt: {n_in} input lanes for {n} points (a power of two up to "
+                         f"2^{MAX_LOGN})")
     lib = build.cuda_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    dit_stages.launches += logn
-    build.check(lib.ntt_stages_cuda(x.data_ptr(), tw.data_ptr(), x[0].numel() // n, logn, stream),
-                "ntt_stages_cuda")
+    x = a.contiguous()
+    out = torch.empty(tuple(a.shape[:-1]) + (n,), dtype=FT.DTYPE, device=a.device)
+    rows = x[0].numel() // n_in
+    if rows == 0:
+        return out
+    logn = n.bit_length() - 1
+    passes = 1 if logn <= ONE_PASS_MAX_LOG else 2
+    scratch = torch.empty(rows * n * 8 if passes == 2 else 8, dtype=torch.int32, device=a.device)
+    tw = _powers(n, omega % F.FR_MOD, str(a.device))
+    si, si_step = _factor(in_scale, n_in, a.device)
+    so, so_step = _factor(out_scale, n, a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    ntt_passes.launches += passes
+    build.check(lib.ntt_cuda(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), tw.data_ptr(),
+                             si, si_step, so, so_step, rows, n_in, logn, stream), "ntt_cuda")
+    return out
 
 
-dit_stages.launches = 0
+ntt_passes.launches = 0
 
 
-def intt(a: torch.Tensor, omega: int) -> torch.Tensor:
-    """Inverse NTT (includes the n^-1 scale)."""
-    n = int(a.shape[-1])
-    res = ntt(a, F.fr_inv(omega))
-    return FT.mont_mul(res, FT.const_tensor(FT.FR.const(F.fr_inv(n)), a.device, res.dim()))
+def plan(n: int, rows: int) -> list[dict]:
+    """The launches ``ntt_passes`` makes for ``rows`` rows of n points on the
+    current card: each one's kind (one pass, pass A or pass B), lines a
+    block, blocks a cluster, threads a block and blocks."""
+    desc = (ctypes.c_int64 * 10)()
+    count = build.cuda_library().ntt_plan_cuda(rows, n.bit_length() - 1, desc)
+    kinds = ("one pass", "pass A", "pass B")
+    return [{"kind": kinds[desc[5 * i]], "lines": 1 << desc[5 * i + 1],
+             "cluster": 1 << desc[5 * i + 2], "threads": desc[5 * i + 3],
+             "blocks": desc[5 * i + 4]} for i in range(count)]

@@ -1,7 +1,7 @@
-"""Time K1-K6 and X4 at their paths' shapes on one GPU, for one checkout.
+"""Time K1-K6, X4, X1 and X0c at their paths' shapes on one GPU, for one checkout.
 
     python circuits_halo2_tpu_torch/scripts/time_kernels.py [--root DIR] [--k 13,14]
-        [--kernels k1,k2,k3,k4,k5,k6,x4]
+        [--kernels k1,k2,k3,k4,k5,k6,x4,x1,x0c,x1plan]
 
 Imports ``circuits_halo2_tpu_torch`` from ``--root`` (default: the checkout
 that holds this file), so one call can time two checkouts of the package
@@ -22,9 +22,20 @@ experiment's dual-ITERS difference) and K6's one reduced multiply at
 that ``ParamsKZG.downsize`` runs (omega^-1, scale n^-1) of n random points,
 its inputs built by that checkout's own ``utils/ec_fft.transform_inputs``
 and timed through its ``ops/ec_fft_kernel.ec_fft`` (one launch a stage and
-one for the scale). ``--kernels`` names the kernels to time (default all).
-Prints one JSON line with the times and the card's name and power limit.
-Inputs are random canonical values from ``--seed``.
+one for the scale). X1 through ``ntt.ntt`` (and ``intt``) at (16, 8, 2^16), the
+k=13 prover's extended domain, (16, 2, 2^19), k=17's, and (16, 4, 2^13), and
+at 2^10 to 2^12 over 8 rows; ``x1plan`` (not in the default, and only
+where the checkout has ``ntt.plan``) times X1's one-pass sizes at the k=11
+prove's batches in the library's plan against builds of ``csrc/ntt.cu`` with
+another (``X1_VARIANTS``: one pass without clusters, two passes); X0c through ``field_torch.inv_mont`` at (16, 1,
+3, 1), ``batch_inv_dev``'s, and at 2^16. For X1 and X0c each entry is the
+device time a call (``torch.profiler``'s CUDA kernel durations summed over
+``--iters`` calls, every kernel the call launches: the parent's gather and
+stages too), its launches, and the wrapper's time (CUDA events around
+``--iters`` back-to-back calls, host time included). ``--kernels`` names
+the kernels to time (default all). Prints one JSON line with the times and
+the card's name and power limit. Inputs are random canonical values from
+``--seed``.
 """
 
 from __future__ import annotations
@@ -36,6 +47,9 @@ import sys
 from pathlib import Path
 
 X4_K = (10, 13, 16)  # X4's sizes: both downsizes of the path, and the card full
+# Profiles taken before giving up on one that misses kernels (seen after
+# a few in one process)
+PROFILE_TRIES = 8
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -49,6 +63,96 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int) -> tuple[float, float]:
+    """(ms of CUDA kernel time a call, kernels a call) over ``iters`` calls
+    of ``fn`` under ``torch.profiler`` after a warm one. A profile that
+    recorded no kernel, or a count that is no multiple of ``iters`` (both
+    seen in a process that had profiled before), is taken again, up to
+    three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not e.name().startswith(("Memcpy", "Memset"))]
+        if kernels and len(kernels) % iters == 0:
+            return (sum(e.end_ns() - e.start_ns() for e in kernels) / 1e6 / iters,
+                    len(kernels) / iters)
+    raise RuntimeError(f"torch.profiler recorded no whole set of kernels in {PROFILE_TRIES} "
+                       "tries")
+
+
+def timed_call(torch, fn, iters: int) -> dict:
+    """Device time and launches a call, and the wrapper's time a call."""
+    ms, launches = device_ms(torch, fn, iters)
+    return {"device_ms": ms, "launches": launches, "wrapper_ms": cuda_ms(torch, fn, iters)}
+
+
+# X1's one-pass sizes at the batches the entry_16 k=11 prove hands them (its
+# lagrange_to_coeff of 9, 19 and 20 columns), and 8 rows at 2^10 and 2^11
+X1_PLAN_SHAPES = ((9, 11), (19, 11), (20, 11), (8, 11), (8, 10))
+# The plans compared with the library's: -D settings of csrc/ntt.cu
+X1_VARIANTS = {"no_cluster": "-DX1_MAX_CLUSTER_LOG=0", "two_pass": "-DX1_ONE_PASS_MAX_LOG=0"}
+
+
+def x1_variant(build, root: Path, define: str):
+    """The checkout's csrc/ntt.cu built alone with one plan setting changed
+    by ``define``, loaded through ctypes (its ntt_cuda has the library's
+    arguments)."""
+    import ctypes
+    import hashlib
+
+    src = root / "circuits_halo2_tpu_torch" / "csrc" / "ntt.cu"
+    tag = hashlib.sha256(define.encode() + src.read_bytes()).hexdigest()[:12]
+    so = build.build_dir() / f"ntt-variant-{tag}.so"
+    if not so.exists():
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, define, "-shared", "-o", str(so),
+                        str(src)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(so))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.ntt_cuda.argtypes = [vp, vp, vp, vp, vp, i32, vp, i32, i64, i64, i32, vp]
+    lib.ntt_cuda.restype = ctypes.c_int
+    return lib
+
+
+def x1_plans(torch, NTT, build, root: Path, canonical, iters: int) -> dict:
+    """At each of ``X1_PLAN_SHAPES``, the library's plan (one pass, a row a
+    block or a cluster's) against the ``X1_VARIANTS`` builds (one pass
+    without clusters; two passes), each a ``timed_call`` of the bare
+    transform, their limbs required equal; and the library's plan."""
+    libs = {name: x1_variant(build, root, d) for name, d in X1_VARIANTS.items()}
+    out = {}
+    for rows, k in X1_PLAN_SHAPES:
+        n, omega = 1 << k, NTT.omega_for_k(k)
+        a = canonical(1, rows, n)
+        tw = NTT._powers(n, omega, str(a.device))
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+
+        def variant(lib):
+            res = torch.empty_like(a)
+            scratch = torch.empty(rows * n * 8, dtype=torch.int32, device=a.device)
+            build.check(lib.ntt_cuda(a.data_ptr(), res.data_ptr(), scratch.data_ptr(),
+                                     tw.data_ptr(), 0, 0, 0, 0, rows, n, k, stream), "variant")
+            return res
+
+        want = NTT.ntt_passes(a, omega, n)
+        tag = f"x1_k{k}x{rows}"
+        out[f"{tag}_plan"] = NTT.plan(n, rows)
+        out[f"{tag}_library"] = timed_call(torch, lambda: NTT.ntt_passes(a, omega, n), iters)
+        for name, lib in libs.items():
+            if not torch.equal(variant(lib), want):
+                raise RuntimeError(f"X1's {name} build differs from the library at {tag}")
+            out[f"{tag}_{name}"] = timed_call(torch, lambda: variant(lib), iters)
+    return out
 
 
 def k4_root_ms(torch, np, DT, PM, args) -> tuple[float, int]:
@@ -87,7 +191,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--k", default="13")
-    ap.add_argument("--kernels", default="k1,k2,k3,k4,k5,k6,x4")
+    ap.add_argument("--kernels", default="k1,k2,k3,k4,k5,k6,x4,x1,x0c")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -166,6 +270,18 @@ def main() -> int:
         before = EK.ec_fft.launches
         out[f"x4_k{k}"] = cuda_ms(torch, lambda: EK.ec_fft(*x4_args), args.iters)
         out[f"x4_k{k}_launches"] = (EK.ec_fft.launches - before) // (args.iters + 1)
+    for rows, k in ((8, 16), (2, 19), (4, 13), (8, 10), (8, 11), (8, 12)) if "x1" in kernels else ():
+        n, omega = 1 << k, NTT.omega_for_k(k)
+        a = canonical(1, rows, n)
+        out[f"x1_k{k}x{rows}"] = timed_call(torch, lambda: NTT.ntt(a, omega), args.iters)
+        if k == 16:
+            out[f"x1_k{k}x{rows}_intt"] = timed_call(torch, lambda: NTT.intt(a, omega), args.iters)
+    if "x1plan" in kernels and hasattr(NTT, "plan"):
+        out.update(x1_plans(torch, NTT, build, Path(args.root), canonical, args.iters))
+    for shape in ((1, 3, 1), (1 << 16,)) if "x0c" in kernels else ():
+        z = canonical(*shape)
+        tag = "x0c_" + "x".join(map(str, shape))
+        out[tag] = timed_call(torch, lambda: FT.inv_mont(z), args.iters)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -149,6 +149,14 @@ class Domain:
         w_n = F.fr_pow(self.omega_ext, self.n)
         zh = [(gn * F.fr_pow(w_n, i) - 1) % P for i in range(self.n_ext)]
         self._zh_inv = self.to_device(native.batch_inv(zh))
+        # the transforms' factors (X1 applies them as it loads or stores):
+        # g^j on coeff_to_extended's input, 1 / Zh on vanishing_to_coeff's,
+        # n_ext^-1 g^-k on the coefficients out of the inverse
+        n_ext_inv = F.fr_inv(self.n_ext)
+        self._omega_ext_inv = F.fr_inv(self.omega_ext)
+        self._coset_lanes = NTT.Lanes(self._coset)
+        self._zh_inv_lanes = NTT.Lanes(self._zh_inv)
+        self._to_coeff_lanes = NTT.Lanes(self.to_device([v * n_ext_inv % P for v in gi_pows]))
         self._omega_pows = None
         self._x_ext = None
         self._consts: dict[tuple, torch.Tensor] = {}
@@ -206,17 +214,24 @@ class Domain:
         return NTT.intt(dev_values, self.omega)
 
     def coeff_to_extended(self, dev_coeffs: torch.Tensor) -> torch.Tensor:
-        """(16, *batch, n) coefficients -> (16, *batch, n_ext) coset evaluations."""
-        padded = torch.nn.functional.pad(dev_coeffs, (0, self.n_ext - dev_coeffs.shape[-1]))
-        return NTT.ntt(FT.mont_mul(padded, self._lanes(self._coset, padded.dim())),
-                       self.omega_ext)
+        """(16, *batch, m) coefficients, m <= n_ext (the rest zero) ->
+        (16, *batch, n_ext) coset evaluations; the coset factors g^j are
+        applied as the transform loads the m coefficients."""
+        return NTT.transform(dev_coeffs, self.omega_ext, self.n_ext, in_scale=self._coset_lanes)
 
     def extended_to_coeff(self, dev_evals: torch.Tensor) -> torch.Tensor:
-        coeffs = NTT.intt(dev_evals, self.omega_ext)
-        return FT.mont_mul(coeffs, self._lanes(self._coset_inv, coeffs.dim()))
+        """Coset evaluations -> coefficients: the inverse transform with
+        n_ext^-1 g^-k applied as it stores."""
+        return NTT.transform(dev_evals, self._omega_ext_inv, out_scale=self._to_coeff_lanes)
 
     def divide_by_vanishing(self, dev_evals: torch.Tensor) -> torch.Tensor:
         return FT.mont_mul(dev_evals, self._lanes(self._zh_inv, dev_evals.dim()))
+
+    def vanishing_to_coeff(self, dev_evals: torch.Tensor) -> torch.Tensor:
+        """``extended_to_coeff(divide_by_vanishing(dev_evals))`` in one
+        transform: 1 / Zh applied as it loads."""
+        return NTT.transform(dev_evals, self._omega_ext_inv, in_scale=self._zh_inv_lanes,
+                             out_scale=self._to_coeff_lanes)
 
     def rotate_ext(self, dev_evals: torch.Tensor, rotation: int) -> torch.Tensor:
         """Rotation by omega^rot on the extended evaluation grid."""

@@ -152,6 +152,22 @@ def test_profile_summary():
     assert BS.profile_summary(raw, 1.0) == {"profiler": "no device events"}
 
 
+def test_profile_summary_lists_every_hand_kernel():
+    """Every hand kernel gets a row, by its CUDA function's name in the
+    demangled signature (0 where it did not run), apart from torch's own."""
+    cuda = DeviceType.CUDA
+    events = [_event(cuda, "void (anonymous namespace)::ntt_pass_kernel(x1::Args, x1::Pass)", 0, 40),
+              _event(cuda, "void (anonymous namespace)::ntt_pass_kernel(x1::Args, x1::Pass)", 50, 70),
+              _event(cuda, "void (anonymous namespace)::inv_kernel<bn254::Fr>(long const*)", 80, 85),
+              _event(cuda, "void at::native::upsample_linear1d_out_frame<float>()", 90, 99)]
+    got = BS.profile_summary(events, wall_s=1.0)["hand_kernels"]
+    assert [row["kernel"] for row in got] == [key for key, _ in BS.HAND_KERNELS]
+    by_key = {row["kernel"]: row for row in got}
+    assert by_key["X1"]["launches"] == 2 and by_key["X1"]["device_s"] == pytest.approx(60e-6)
+    assert by_key["X0c"]["launches"] == 1
+    assert sum(row["launches"] for row in got) == 3
+
+
 def test_measure_prove_traces_phases():
     """The timed repeats run with the prove trace off; one more prove, not
     timed, runs with it on and gives the phases; a prove whose bytes change

@@ -12,8 +12,12 @@ in place of the tensor cores), K4's warp reduction through the kernel's own
 index functions for 32 lanes at once (a shuffle as an array read, ``mma`` by
 the PTX fragment definition), and the results are held to Python ints and to
 the plain torch versions; X4's butterflies, driven thread by thread, also
-downsize the hermez-raw-11 ceremony file to the JAX package's bases. Exact. The launches themselves are checked on the card
-(``chip_smoke.py``, ``-m cuda`` tests)."""
+downsize the hermez-raw-11 ceremony file to the JAX package's bases. X0's
+per-thread functions (the divstep inversion among them) run for every
+element, and X1's block phases (``csrc/ntt.cu``) for every thread of every
+block of a launch, a cluster's blocks on buffers of their own. Exact. The
+launches themselves are checked on the card (``chip_smoke.py``, ``-m cuda``
+tests)."""
 
 import hashlib
 import json
@@ -31,6 +35,7 @@ from circuits_halo2_tpu.ops import curve as C
 from circuits_halo2_tpu.ops import field as F
 from circuits_halo2_tpu.ops import field_jax as FJ
 from circuits_halo2_tpu.ops import ntt as JN
+from circuits_halo2_tpu.utils import poly_device as JPD
 from circuits_halo2_tpu_torch import native
 from circuits_halo2_tpu_torch.ops import curve as TC
 from circuits_halo2_tpu_torch.ops import ec_fft_kernel as EK
@@ -42,6 +47,7 @@ from circuits_halo2_tpu_torch.ops import poseidon as PS
 from circuits_halo2_tpu_torch.ops import poseidon_kernel as PK
 from circuits_halo2_tpu_torch.ops import poseidon_mxu as PM
 from circuits_halo2_tpu_torch.utils import ec_fft as EC
+from circuits_halo2_tpu_torch.utils import poly_device as TPD
 from circuits_halo2_tpu_torch.utils.srs import ParamsKZG
 
 torch.set_num_threads(2)
@@ -60,6 +66,7 @@ HARNESS = r"""
 #include "poseidon_mxu.cu"
 #include "ec_fft.cu"
 #include "field_ops.cu"
+#include "ntt.cu"
 
 template <class T> static std::vector<T> take(size_t n) {
     std::vector<T> v(n);
@@ -133,7 +140,8 @@ template <class Half, class Finish> static void x4_blocks(long threads, Half hal
 }
 
 // An X0 launch as the card runs it, thread by thread: op 0 the product,
-// 1-3 add, sub, neg, 4 the power.
+// 1-3 add, sub, neg, 4 the power, 5 the inversion (the exponent's words
+// holding R^3 mod p).
 template <class P>
 static void x0_threads(int op, const int64_t* a, const int64_t* b, int64_t* out,
                        const fops::Shape& s, const fops::Strides& sa, const fops::Strides& sb,
@@ -143,8 +151,45 @@ static void x0_threads(int op, const int64_t* a, const int64_t* b, int64_t* out,
             fops::mont_mul_thread<P>(a, b, out, s, sa, sb, m, t);
         else if (op < 4)
             fops::linear_thread<P>(op - 1, a, b, out, s, sa, sb, m, t);
-        else
+        else if (op == 4)
             fops::pow_thread<P>(a, out, s, sa, e, m, t);
+        else
+            fops::inv_thread<P>(a, out, s, sa, e.w, m, t);
+    }
+}
+
+// An X1 launch as the card runs it: cluster after cluster (one block, where
+// the pass has no clusters), each block on a shared-memory buffer of its own
+// (refilled with a pattern first, so a read of a slot no block wrote shows),
+// each phase run for every thread of every block of the cluster before the
+// next, as the kernel's barriers order them; a block reaches another's
+// buffer through the peer table.
+struct HostPeers {
+    std::vector<uint32_t*> sms;
+    uint32_t* operator()(uint32_t*, int rank) const { return sms[rank]; }
+};
+
+static void x1_blocks(const x1::Args& a, const x1::Pass& p) {
+    const int C = 1 << p.lc;
+    std::vector<std::vector<uint32_t>> bufs(C, std::vector<uint32_t>(x1::smem_bytes(p) / 4));
+    HostPeers peers;
+    for (auto& b : bufs) peers.sms.push_back(b.data());
+    for (int64_t blk = 0; blk < (p.blocks >> p.lc); ++blk) {
+        for (auto& b : bufs) std::fill(b.begin(), b.end(), 0xa5a5a5a5u);
+        for (int r = 0; r < C; ++r)
+            for (int t = 0; t < p.threads; ++t) {
+                x1::load_twiddles(peers.sms[r], p, a, t);
+                x1::load_lines(peers.sms[r], p, a, blk, r, t);
+            }
+        int s = 0;
+        for (; s + 1 < p.lm - p.lc; s += 2)
+            for (int r = 0; r < C; ++r)
+                for (int t = 0; t < p.threads; ++t) x1::stage_pair(peers.sms[r], p, s, t);
+        for (; s < p.lm; ++s)
+            for (int r = 0; r < C; ++r)
+                for (int t = 0; t < p.threads; ++t) x1::stage(peers.sms[r], p, a, s, r, t, peers);
+        for (int r = 0; r < C; ++r)
+            for (int t = 0; t < p.threads; ++t) x1::store_lines(peers.sms[r], p, a, blk, r, t);
     }
 }
 
@@ -280,15 +325,22 @@ int main(int argc, char** argv) {
         else
             x0_threads<bn254::Fq>(n, av.data(), bv.data(), out.data(), s, sa, sb, e, m);
         fwrite(out.data(), 8, out.size(), stdout);
-    } else if (mode == "ntt") {  // X1: L bit-reversed rows of n points, stage by stage; the table
-        auto x = take<int64_t>((size_t)16 * L * n);
-        auto tw = take<int64_t>((size_t)16 * (n - 1));
-        int logn = 0;
-        while ((1L << logn) < n) ++logn;
-        for (int st = 0; st < logn; ++st)
-            for (uint32_t g = 0; g < (uint32_t)(L * n / 2); ++g)
-                fops::ntt_thread(x.data(), tw.data(), L, logn, st, g);
-        fwrite(x.data(), 8, x.size(), stdout);
+    } else if (mode == "x1") {  // X1: L rows of n points from n_in lanes; the table, the factors
+        const long n_in = atol(argv[4]), si_len = atol(argv[7]), so_len = atol(argv[8]);
+        const int one_pass = atoi(argv[5]), target = atoi(argv[6]);
+        auto in = take<int64_t>((size_t)16 * L * n_in);
+        auto tw = take<uint32_t>((size_t)8 * n);
+        auto si = take<uint32_t>((size_t)8 * si_len), so = take<uint32_t>((size_t)8 * so_len);
+        std::vector<int64_t> out((size_t)16 * L * n + 1);
+        std::vector<uint32_t> scratch((size_t)8 * L * n);
+        x1::Args a{in.data(), out.data(), scratch.data(), tw.data(),
+                   si_len ? si.data() : nullptr, so_len ? so.data() : nullptr,
+                   (int)(si_len > 1), (int)(so_len > 1), 0, 0, 0, L, n_in};
+        x1::Pass ps[2];
+        const int launches = x1::plan(x1::ilog2(n), L, one_pass, target, a, ps);
+        for (int i = 0; i < launches; ++i) x1_blocks(a, ps[i]);
+        out[16 * L * n] = launches + 16 * ps[0].lc;  // the launches and the first's cluster
+        fwrite(out.data(), 8, out.size(), stdout);
     } else {  // scan: n points, L steps per lane
         auto seg = take<int64_t>(n);
         auto val = take<uint8_t>(n);
@@ -856,19 +908,159 @@ def test_x0_thread_code_reads_strided_operands(harness, case, op):
         assert left == axes
 
 
-def test_x1_thread_code_runs_a_2_11_transform(harness):
-    """X1's per-thread butterfly run stage by stage over two bit-reversed
-    2^11-point rows (0 and p - 1 among them) gives ``ntt_ref``'s limbs and
-    the JAX package's ``ntt``."""
-    n, rows = 1 << 11, 2
-    rng = np.random.default_rng(23)
-    vals = [int.from_bytes(rng.bytes(32), "little") % F.FR_MOD for _ in range(rows * n)]
-    vals[0], vals[n + 1] = 0, F.FR_MOD - 1
-    a = torch.as_tensor(FT.to_mont_limbs(vals)).reshape(16, rows, n)
-    omega = NTT.omega_for_k(11)
-    rev, flat, _ = NTT._tables(n, omega, "cpu")
-    payload = a.index_select(-1, rev).numpy().tobytes() + flat.numpy().tobytes()
-    got = torch.as_tensor(_run(harness, "ntt", rows, n, payload, np.int64)).reshape(16, rows, n)
+# The inversion (X0c): the divstep code against the Fermat chain
+
+X0_OPS["inv"] = 5
+
+
+def _divsteps_to_zero(p: int, g: int) -> int:
+    """The paper's divsteps from (delta, f, g) = (1, p, g) until g = 0."""
+    delta, f, steps = 1, p, 0
+    while g:
+        if delta > 0 and g & 1:
+            delta, f, g = 1 - delta, g, (g - f) >> 1
+        else:
+            delta, g = 1 + delta, (g + (g & 1) * f) >> 1
+        steps += 1
+    return steps
+
+
+def _inversion_inputs(p: int, seed: int) -> list[int]:
+    """0, 1, p - 1, R mod p, raw values up to 2^256 - 1, random values, and
+    the eight that need the most divsteps among those and 1,500 more
+    candidates (random, small, p minus small, powers of two and their
+    neighbours, p's halvings)."""
+    rng = np.random.default_rng(seed)
+    rand = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(24)]
+    raw = [p, p + 1, 2 * p - 1, 5 * p, (1 << 256) - 1] + [
+        p + int.from_bytes(rng.bytes(32), "little") % ((1 << 256) - p) for _ in range(7)]
+    cand = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(1200)]
+    cand += list(range(2, 66)) + [p - i for i in range(2, 66)]
+    cand += [(1 << i) % p for i in range(254)] + [((1 << i) - 1) % p for i in range(2, 254)]
+    cand += [(p - 1) >> i for i in range(1, 64)]
+    worst = sorted(cand, key=lambda g: -_divsteps_to_zero(p, g))[:8]
+    return [0, 1, p - 1, (1 << 256) % p] + raw + rand + worst
+
+
+@pytest.mark.parametrize("field", sorted(X0_FIELDS))
+def test_x0c_divstep_inversion_matches_fermat_and_jax(harness, field):
+    """X0c's divstep inversion (25 batches of 30, the paper's bound for 254
+    bits with 14 to spare) gives the Fermat chain's limbs, mont_pow_ref(a,
+    p - 2), and field_jax's inv_mont at 0, 1, p - 1, R mod p, raw limbs up
+    to 2^256 - 1 (reduced first), random values and the inputs that need
+    the most divsteps of a seeded search; none needs more than 750."""
+    code, ts, js = X0_FIELDS[field]
+    p = ts.mod_int
+    vals = _inversion_inputs(p, seed=code)
+    assert max(_divsteps_to_zero(p, v % p) for v in vals) <= 25 * 30
+    a = torch.as_tensor(FT.ints_to_limbs(vals))
+    got, _ = _x0(harness, code, "inv", a, a, (1 << 768) % p)
+    assert torch.equal(got, FT.mont_pow_ref(a, p - 2, ts))
+    want = FJ.inv_mont(jnp.asarray(a.numpy().astype(np.uint32)), js)
+    assert np.array_equal(np.asarray(want).astype(np.int64), got.numpy())
+    nonzero = [i for i, v in enumerate(vals) if v % p]
+    inv = FT.limbs_to_ints(got)
+    assert all(inv[i] * vals[i] % p == pow(1 << 256, 2, p) for i in nonzero)
+
+
+# X1 (csrc/ntt.cu): every block of a launch, each phase for every thread
+# before the next, from what ``ntt_passes`` hands the kernel
+
+
+def _x1(exe, a, omega, n=None, in_scale=None, out_scale=None,
+        one_pass=NTT.ONE_PASS_MAX_LOG, target=132, cluster=False):
+    """X1's block code on the (16, *batch, n_in) limbs ``a``: the output, the
+    launches and (with ``cluster``) log2 of the first launch's cluster size.
+    ``target`` is the grid the plan aims for (the card's SM count; 1 keeps
+    the most lines a block)."""
+    n_in = int(a.shape[-1])
+    n = n or n_in
+    tw = NTT._powers(n, omega % F.FR_MOD, "cpu")
+    si = in_scale.words if in_scale else torch.empty((0, 8), dtype=torch.int32)
+    so = out_scale.words if out_scale else torch.empty((0, 8), dtype=torch.int32)
+    payload = b"".join(t.contiguous().numpy().tobytes() for t in (a, tw, si, so))
+    rows = a[0].numel() // n_in
+    out = _run(exe, "x1", rows, n, payload, np.int64, n_in, one_pass, target, len(si), len(so))
+    got = torch.as_tensor(out[:-1]).reshape(tuple(a.shape[:-1]) + (n,))
+    return (got, int(out[-1]) % 16, int(out[-1]) // 16) if cluster else (got, int(out[-1]) % 16)
+
+
+def _fr_limbs(shape, seed):
+    """Canonical Montgomery limbs of random elements, 0 and p - 1 first and
+    last."""
+    rng = np.random.default_rng(seed)
+    count = int(np.prod(shape))
+    vals = [int.from_bytes(rng.bytes(32), "little") % F.FR_MOD for _ in range(count)]
+    vals[0], vals[-1] = 0, F.FR_MOD - 1
+    return torch.as_tensor(FT.to_mont_limbs(vals)).reshape((16,) + tuple(shape))
+
+
+@pytest.mark.parametrize("k,rows,one_pass,target,cluster", [
+    (11, 2, 11, 132, 3),  # one pass, a row over a cluster of 8 blocks
+    (11, 2, 11, 1, 0),    # one pass, a row a block
+    (11, 2, 10, 132, 0),  # the same transform in two passes
+    (13, 2, 11, 132, 0),  # two passes, a line a block
+    (13, 2, 11, 1, 0),    # two passes, 16 and 32 lines a block
+    (16, 2, 11, 132, 0),  # two passes, 2 lines a block
+    (6, 3, 11, 8, 0),     # one pass, 3 rows in a 4-line block
+    (8, 3, 11, 132, 2),   # one pass, a row over a cluster of 4
+    (1, 3, 11, 1, 0),     # 2 points
+])
+def test_x1_block_code_matches_plain_and_jax(harness, k, rows, one_pass, target, cluster):
+    """X1's block code over ``rows`` random rows of 2^k points (0 and p - 1
+    among them), in one launch up to 2^one_pass points (a row spread over a
+    cluster of blocks where the rows are few) and two above, gives
+    ``ntt_ref``'s limbs and, at 2^11 and 2^13, the JAX package's ``ntt``."""
+    n = 1 << k
+    a = _fr_limbs((rows, n), seed=k * 10 + rows)
+    omega = NTT.omega_for_k(k)
+    got, launches, lc = _x1(harness, a, omega, one_pass=one_pass, target=target, cluster=True)
+    assert launches == (1 if k <= one_pass else 2) and lc == cluster
     assert torch.equal(got, NTT.ntt_ref(a, omega))
-    want = JN.ntt(jnp.asarray(a.numpy().astype(np.uint32)), omega)
+    if k in (11, 13) and target > 1 and one_pass == NTT.ONE_PASS_MAX_LOG:
+        want = JN.ntt(jnp.asarray(a.numpy().astype(np.uint32)), omega)
+        assert np.array_equal(np.asarray(want).astype(np.int64), got.numpy())
+
+
+@pytest.mark.parametrize("method", ["coeff_to_extended", "lagrange_to_coeff",
+                                    "extended_to_coeff", "vanishing_to_coeff"])
+def test_x1_block_code_fused_domain_transforms(harness, method):
+    """The Domain's transforms with their factors folded into X1's load and
+    store (the coset g^j on 2^11 of 2^13 input lanes; n^-1 on store; n_ext^-1
+    g^-k on store; 1 / Zh on load and n_ext^-1 g^-k on store) give the
+    plain sequence's limbs (mont_mul_ref, zero lanes, ntt_ref, mont_mul_ref)
+    and the JAX package's Domain."""
+    dom, jdom = TPD.domain(11, 3, "cpu"), JPD.domain(11, 3)
+    wide = method != "coeff_to_extended" and method != "lagrange_to_coeff"
+    a = _fr_limbs((2, dom.n_ext if wide else dom.n), seed=len(method))
+    ja = jnp.asarray(a.numpy().astype(np.uint32))
+    n_inv = FT.const_tensor(FT.FR.const(F.fr_inv(dom.n)), "cpu", 3)
+    ext_inv = FT.const_tensor(FT.FR.const(F.fr_inv(dom.n_ext)), "cpu", 3)
+    lanes = lambda t: t.reshape(16, 1, -1)  # noqa: E731
+    omega_inv = F.fr_inv(dom.omega_ext)
+    if method == "coeff_to_extended":
+        got, launches = _x1(harness, a, dom.omega_ext, dom.n_ext, in_scale=dom._coset_lanes)
+        padded = torch.nn.functional.pad(a, (0, dom.n_ext - dom.n))
+        plain = NTT.ntt_ref(FT.mont_mul_ref(padded, lanes(dom._coset)), dom.omega_ext)
+        want = jdom.coeff_to_extended(ja)
+    elif method == "lagrange_to_coeff":
+        got, launches = _x1(harness, a, F.fr_inv(dom.omega),
+                            out_scale=NTT.const_lanes(F.fr_inv(dom.n), "cpu"))
+        plain = FT.mont_mul_ref(NTT.ntt_ref(a, F.fr_inv(dom.omega)), n_inv)
+        want = jdom.lagrange_to_coeff(ja)
+    elif method == "extended_to_coeff":
+        got, launches = _x1(harness, a, omega_inv, out_scale=dom._to_coeff_lanes)
+        coeffs = FT.mont_mul_ref(NTT.ntt_ref(a, omega_inv), ext_inv)
+        plain = FT.mont_mul_ref(coeffs, lanes(dom._coset_inv))
+        want = jdom.extended_to_coeff(ja)
+    else:
+        got, launches = _x1(harness, a, omega_inv, in_scale=dom._zh_inv_lanes,
+                            out_scale=dom._to_coeff_lanes)
+        divided = FT.mont_mul_ref(a, lanes(dom._zh_inv))
+        coeffs = FT.mont_mul_ref(NTT.ntt_ref(divided, omega_inv), ext_inv)
+        plain = FT.mont_mul_ref(coeffs, lanes(dom._coset_inv))
+        want = jdom.extended_to_coeff(jdom.divide_by_vanishing(ja))
+    assert launches == (1 if got.shape[-1] <= 1 << NTT.ONE_PASS_MAX_LOG else 2)
+    assert torch.equal(got, plain)
+    assert torch.equal(got, getattr(dom, method)(a))
     assert np.array_equal(np.asarray(want).astype(np.int64), got.numpy())

@@ -1,5 +1,5 @@
 """The CUDA kernels on the card: K1, K2, K3, K4, the K5/K6 probes, X4 (the
-EC-FFT) and X0/X1 (the field arithmetic and the NTT stages) against their
+EC-FFT) and X0/X1 (the field arithmetic, the inversion and the NTT) against their
 plain torch versions at ragged and main-path shapes,
 the device tree and the Pippenger on the card against the same code on the
 CPU and the native host code, X4's Lagrange bases against the analytic
@@ -356,35 +356,93 @@ def test_x0a_x0b_match_plain(dev, field):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("field", ["fr", "fq"])
 @pytest.mark.parametrize("shape", [(1, 3, 1), (1 << 16,)])
-def test_x0c_matches_plain(dev, shape):
-    """X0c: the Fermat inversion on batch_inv_dev's (16, 1, 3, 1) and on 2^16
-    elements (0 -> 0) in one launch, equal to the plain chain; a^-1 a = 1."""
-    rng = np.random.default_rng(len(shape))
-    a = _limbs(dev, shape, rng)
-    before = FT.mont_pow.launches
-    got = FT.inv_mont(a)
-    assert FT.mont_pow.launches == before + 1
-    assert torch.equal(got, FT.mont_pow_ref(a, FT.FR.mod_int - 2))
-    one = FT.const_tensor(FT.FR.one_mont, dev, a.dim()).expand_as(a)
+def test_x0c_matches_plain(dev, shape, field):
+    """X0c: the divstep inversion on batch_inv_dev's (16, 1, 3, 1) and on 2^16
+    elements (0 -> 0) in one launch, equal to the plain Fermat chain; a^-1 a
+    = 1; and on raw limbs (any value below 2^256) equal to the chain."""
+    spec = FT.FR if field == "fr" else FT.FQ
+    rng = np.random.default_rng(len(shape) + len(field))
+    a = _limbs(dev, shape, rng, spec)
+    before = FT.inv_mont.launches
+    got = FT.inv_mont(a, spec)
+    assert FT.inv_mont.launches == before + 1
+    assert torch.equal(got, FT.mont_pow_ref(a, spec.mod_int - 2, spec))
+    one = FT.const_tensor(spec.one_mont, dev, a.dim()).expand_as(a)
     nonzero = ~FT.is_zero(a)
-    assert torch.equal(FT.mont_mul(got, a)[:, nonzero], one[:, nonzero])
+    assert torch.equal(FT.mont_mul(got, a, spec)[:, nonzero], one[:, nonzero])
     assert torch.equal(got[:, ~nonzero], a[:, ~nonzero])
+    raw = torch.as_tensor(rng.integers(0, 1 << 16, (16, 999)), device=dev)
+    raw[:, 0] = 0xFFFF
+    assert torch.equal(FT.inv_mont(raw, spec), FT.mont_pow_ref(raw, spec.mod_int - 2, spec))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,rows", [(1, 3), (11, 1), (13, 3)])
+@pytest.mark.parametrize("exponent", [0, 5, FR_MOD - 2, (1 << 256) - 1])
+def test_mont_pow_chain_matches_plain(dev, exponent):
+    """The power chain (mont_pow, off the prover's path) in one launch equals
+    the plain loop."""
+    a = _limbs(dev, (2, 100), np.random.default_rng(exponent % 1000))
+    before = FT.mont_pow.launches
+    got = FT.mont_pow(a, exponent)
+    assert FT.mont_pow.launches == before + 1
+    assert torch.equal(got, FT.mont_pow_ref(a, exponent))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,rows", [(1, 3), (6, 5), (11, 1), (13, 3), (16, 2), (19, 1), (22, 1)])
 def test_x1_matches_plain(dev, k, rows):
-    """X1 through ntt and intt (k stages a transform) equals ntt_ref, and
-    intt undoes ntt."""
+    """X1 through ntt and intt (one launch a transform up to 2^11, two above,
+    up to 2^22) equals ntt_ref, and intt undoes ntt."""
     rng = np.random.default_rng(k)
     a = _limbs(dev, (rows, 1 << k), rng)
     omega = NTT.omega_for_k(k)
-    before = NTT.dit_stages.launches
+    before = NTT.ntt_passes.launches
     got = NTT.ntt(a, omega)
-    assert NTT.dit_stages.launches == before + k
+    assert NTT.ntt_passes.launches == before + (1 if k <= NTT.ONE_PASS_MAX_LOG else 2)
     assert torch.equal(got, NTT.ntt_ref(a, omega))
     assert torch.equal(NTT.intt(got, omega), a)
+
+
+@pytest.mark.cuda
+def test_x1_one_pass_plans_match_plain(dev):
+    """At 2^11 the one pass spreads a row over a cluster of 8 blocks when the
+    rows are few (the k=11 prove's 9 and 20 columns) and over none when they
+    fill the card, and at 2^10 alike; each equals ntt_ref. A transposed view
+    (as parallel/ntt_sharded hands one over) is read right."""
+    rng = np.random.default_rng(7)
+    for k, rows, cluster in ((11, 9, 8), (11, 20, 8), (11, 264, 1), (10, 4, 8)):
+        (launch,) = NTT.plan(1 << k, rows)
+        assert (launch["kind"], launch["cluster"]) == ("one pass", cluster)
+        a, omega = _limbs(dev, (rows, 1 << k), rng), NTT.omega_for_k(k)
+        assert torch.equal(NTT.ntt_passes(a, omega, 1 << k), NTT.ntt_ref(a, omega))
+    wide = _limbs(dev, (2, 1 << 7, 1 << 6), rng)
+    view = wide.transpose(2, 3)
+    assert torch.equal(NTT._ntt_device(view, NTT.omega_for_k(7)),
+                       NTT.ntt_ref(view, NTT.omega_for_k(7)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["coeff_to_extended", "lagrange_to_coeff",
+                                    "extended_to_coeff", "vanishing_to_coeff"])
+def test_x1_fused_domain_transforms(dev, method):
+    """Each Domain transform at k=13 launches X1 only (no X0a) and equals its
+    plain sequence inside FT.plain()."""
+    from circuits_halo2_tpu_torch.utils import poly_device as PD
+
+    dom = PD.domain(13, 5, str(dev))
+    rng = np.random.default_rng(len(method))
+    a = _limbs(dev, (3, dom.n if method in ("coeff_to_extended", "lagrange_to_coeff")
+                     else dom.n_ext), rng)
+    fn = getattr(dom, method)
+    before = FT.mont_mul.launches, NTT.ntt_passes.launches
+    got = fn(a)
+    assert (FT.mont_mul.launches, NTT.ntt_passes.launches) == (before[0], before[1] + 2)
+    with FT.plain():
+        want = fn(a) if method != "vanishing_to_coeff" else dom.extended_to_coeff(
+            dom.divide_by_vanishing(a))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -393,10 +451,13 @@ def test_plain_versions_launch_no_x0(dev):
     operations run plain torch on the card: no X0 or X1 launch."""
     rng = np.random.default_rng(3)
     a = _limbs(dev, (64,), rng)
-    before = FT.mont_mul.launches, FT.linear.launches, FT.mont_pow.launches, NTT.dit_stages.launches
+    counters = (FT.mont_mul, FT.linear, FT.inv_mont, FT.mont_pow, NTT.ntt_passes)
+    before = [c.launches for c in counters]
     PK.hash_batch_ref(a[None].expand(2, 16, 64))
     NTT.ntt_ref(a, NTT.omega_for_k(6))
+    NTT.transform_ref(a, NTT.omega_for_k(7), 128, out_scale=NTT.const_lanes(5, str(dev)))
     with FT.plain():
         FT.inv_mont(FT.add_mod(a, a))
-    after = FT.mont_mul.launches, FT.linear.launches, FT.mont_pow.launches, NTT.dit_stages.launches
+        FT.mont_pow(a, 5)
+    after = [c.launches for c in counters]
     assert after == before
