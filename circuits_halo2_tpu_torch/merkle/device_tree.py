@@ -26,6 +26,7 @@ from ..ops import field as F
 from ..ops import field_torch as FT
 from ..ops import poseidon_kernel as PK
 from ..ops import poseidon_mxu as PM
+from ..utils import tracing as TR
 
 P = F.FR_MOD
 
@@ -114,9 +115,15 @@ def build_device_tree(hashed_usernames: np.ndarray, balances: np.ndarray, device
     depth = (n - 1).bit_length()
     if n != 1 << depth:
         raise ValueError("entry count must be a power of two")
-    user_raw = torch.as_tensor(digests_to_limbs16(hashed_usernames), device=device)
-    bal_raw = torch.stack([torch.as_tensor(u64_to_limbs16(balances[:, c]), device=device)
-                           for c in range(ncur)])
+    with TR.span("tree_convert"):
+        user_np = digests_to_limbs16(hashed_usernames)
+        bal_np = [u64_to_limbs16(balances[:, c]) for c in range(ncur)]
+    with TR.span("h2d"):
+        user_raw = torch.as_tensor(user_np, device=device)
+        bal_raw = torch.stack([torch.as_tensor(b, device=device) for b in bal_np])
+    if TR.on and user_raw.device.type != "cpu":
+        TR.count("copy", "device_tree", h2d_bytes=user_np.nbytes + sum(b.nbytes for b in bal_np))
+    del user_np, bal_np
     user = FT.to_mont(user_raw)
     leaf_hashes = PK.hash_batch(torch.cat([user[None], _to_mont_cols(bal_raw)]))
 

@@ -15,15 +15,15 @@ runs eagerly through torch ops; commitments go through the device
 Pippenger (``ops/msm``, kernel K3). The host touches only scalars: the
 transcripts, the blinding draws (same order as the reference, so proofs
 are byte-identical) and the small r_j interpolations.
-``CIRCUITS_PROVE_TRACE=1`` prints each phase's wall time to stderr.
+``CIRCUITS_PROVE_TRACE=1`` prints each phase's wall time to stderr, each
+phase synchronised at its end; ``utils/tracing`` records the phases and
+the host work inside them without synchronising.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-import sys
-import time
 
 import torch
 
@@ -31,6 +31,7 @@ from ..ops import field as F
 from ..ops import field_torch as FT
 from ..ops import msm as MSM
 from ..utils import poly_device as PD
+from ..utils import tracing as TR
 from ..utils.srs import ParamsKZG
 from ..utils.transcript import KeccakTranscript
 from .assignment import Assignment
@@ -91,27 +92,6 @@ def prove(
     ``device`` (the card unless the caller asks for the CPU)."""
     return prove_users(params, pk, [circuit], config, [instances], [rng or BlindingRng()],
                        transcript_cls, vk_digest, device)[0]
-
-
-class _Clock:
-    """Per-phase wall clock, on when ``CIRCUITS_PROVE_TRACE`` is set: each
-    mark prints the time since the last one to stderr, after a
-    ``torch.cuda.synchronize()`` on a CUDA domain so the phase's queued
-    work is counted in it."""
-
-    def __init__(self, device: torch.device):
-        self.on = bool(os.environ.get("CIRCUITS_PROVE_TRACE"))
-        self.cuda = device.type == "cuda"
-        self.t0 = time.perf_counter()
-
-    def mark(self, label: str) -> None:
-        if not self.on:
-            return
-        if self.cuda:
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        print(f"[prove] {label}: {now - self.t0:.3f}s", file=sys.stderr, flush=True)
-        self.t0 = now
 
 
 def _opening_points(cs, sets, x, omega, n, blinders):
@@ -222,7 +202,16 @@ def prove_users(params, pk, circuits, config, instances_list, rngs, transcript_c
     Every per-user tensor carries a user axis after the limb axis --
     columns (16, U, B, n), scalars (16, U, k) -- and the columns all users
     share are (16, 1, B, n) views of the per-key cache; each commitment
-    batch is one ``msm_commit_dev`` call over every user's columns."""
+    batch is one ``msm_commit_dev`` call over every user's columns. One
+    call is one request of ``utils/tracing``: each phase is a span, and
+    inside it every piece of host work is a span of its layer."""
+    with TR.call():
+        return _prove_users(params, pk, circuits, config, instances_list, rngs, transcript_cls,
+                            vk_digest, device)
+
+
+def _prove_users(params, pk, circuits, config, instances_list, rngs, transcript_cls,
+                 vk_digest, device) -> list[bytes]:
     U = len(circuits)
     vk = pk.vk
     cs = vk.cs
@@ -238,7 +227,8 @@ def prove_users(params, pk, circuits, config, instances_list, rngs, transcript_c
     sets = rotation_sets(cs)
     dom = PD.domain(vk.k, cs.degree(), str(torch.device(device)))
     NL = FT.NLIMBS
-    clock = _Clock(dom.device)
+    # CIRCUITS_PROVE_TRACE: each phase synchronises and prints its seconds
+    report = dom.device if os.environ.get("CIRCUITS_PROVE_TRACE") else None
 
     def cols(per_user) -> torch.Tensor:
         """Per user, equal-length host columns -> (16, U, B, len)."""
@@ -257,175 +247,205 @@ def prove_users(params, pk, circuits, config, instances_list, rngs, transcript_c
 
     def absorb(points_per_user, squeezes: int = 1):
         out = []
-        for t, pts in zip(ts, points_per_user):
-            for pt in pts:
-                t.write_point(pt)
-            out.append([t.squeeze_challenge() for _ in range(squeezes)])
+        with TR.span("transcript"):
+            for t, pts in zip(ts, points_per_user):
+                for pt in pts:
+                    t.write_point(pt)
+                out.append([t.squeeze_challenge() for _ in range(squeezes)])
         return out
 
-    ts = []
-    for instances in instances_list:
-        t = transcript_cls()
-        t.common_scalar(vk_digest if vk_digest is not None else vk.transcript_repr)
-        for col in instances:
-            for v in col:
-                t.common_scalar(v)
-        ts.append(t)
-
     # ---- phase 1: witness synthesis + advice commitments ------------------
-    advice_rows, inst_rows = [], []
-    for circuit, instances, rng in zip(circuits, instances_list, rngs):
-        asn = Assignment(cs, n, instances)
-        circuit.synthesize(config, asn)
-        advice = [list(col) for col in asn.advice]
-        for col in advice:
-            for row in range(usable, n):
-                col[row] = rng.next_field()
-        advice_rows.append(advice)
-        inst_rows.append([list(col) for col in asn.instance])
-    advice_dev = cols(advice_rows)
-    inst_dev = cols(inst_rows)
-    fixed_dev, sigma_dev, st_coeff, st_ext, st_offsets = _static_transform(pk, dom, usable)
-    # shared by every user: a size-1 user axis, never a copy
-    fixed_dev, sigma_dev, st_coeff, st_ext = (
-        a.unsqueeze(1) for a in (fixed_dev, sigma_dev, st_coeff, st_ext))
-    thetas = absorb(commit(params.g_lagrange, advice_dev, advice_dev.shape[2]))
-    clock.mark("phase1 synth+advice commits")
+    with TR.phase("phase1 synth+advice commits", report):
+        ts = []
+        with TR.span("transcript"):
+            for instances in instances_list:
+                t = transcript_cls()
+                t.common_scalar(vk_digest if vk_digest is not None else vk.transcript_repr)
+                for col in instances:
+                    for v in col:
+                        t.common_scalar(v)
+                ts.append(t)
+        advice_rows, inst_rows = [], []
+        for u, (circuit, instances, rng) in enumerate(zip(circuits, instances_list, rngs)):
+            with TR.span("synthesize", u):
+                asn = Assignment(cs, n, instances)
+                circuit.synthesize(config, asn)
+                advice = [list(col) for col in asn.advice]
+                inst_rows.append([list(col) for col in asn.instance])
+            with TR.span("blinding_draws", u):
+                for col in advice:
+                    for row in range(usable, n):
+                        col[row] = rng.next_field()
+            advice_rows.append(advice)
+        advice_dev = cols(advice_rows)
+        inst_dev = cols(inst_rows)
+        with TR.span("dispatch"):
+            fixed_dev, sigma_dev, st_coeff, st_ext, st_offsets = _static_transform(pk, dom, usable)
+        # shared by every user: a size-1 user axis, never a copy
+        fixed_dev, sigma_dev, st_coeff, st_ext = (
+            a.unsqueeze(1) for a in (fixed_dev, sigma_dev, st_coeff, st_ext))
+        thetas = absorb(commit(params.g_lagrange, advice_dev, advice_dev.shape[2]))
 
     # ---- phase 2: permuted lookup columns ---------------------------------
-    ph = _phase23_fns(cs, dom, usable, nperm, chunk)
-    theta_m = scalars(thetas)
-    a_stack = s_stack = ap_stack = sp_stack = None
-    if nlk:
-        a_stack, s_stack = ph.compress(advice_dev, fixed_dev, inst_dev, theta_m)
-        flat = dom.from_device(torch.cat([a_stack, s_stack], dim=2).reshape(NL, -1))
-        ap_rows, sp_rows = [], []
-        for u, rng in enumerate(rngs):
-            base = u * 2 * nlk * n
-            a_perms, s_perms = [], []
-            for li in range(nlk):
-                a_perm, s_perm = _permute_expression_pair(
-                    flat[base + li * n : base + (li + 1) * n],
-                    flat[base + (nlk + li) * n : base + (nlk + li + 1) * n], usable)
-                a_perms.append(a_perm + [rng.next_field() for _ in range(blinders + 1)])
-                s_perms.append(s_perm + [rng.next_field() for _ in range(blinders + 1)])
-            ap_rows.append(a_perms)
-            sp_rows.append(s_perms)
-        ap_stack = cols(ap_rows)
-        sp_stack = cols(sp_rows)
-        # per user, per lookup: A' then S'
-        beta_gamma = absorb(commit(params.g_lagrange, torch.stack([ap_stack, sp_stack], dim=3),
-                                   2 * nlk), squeezes=2)
-    else:
-        beta_gamma = absorb([[] for _ in range(U)], squeezes=2)
-    clock.mark("phase2 lookup permute+commit")
+    with TR.phase("phase2 lookup permute+commit", report):
+        ph = _phase23_fns(cs, dom, usable, nperm, chunk)
+        theta_m = scalars(thetas)
+        a_stack = s_stack = ap_stack = sp_stack = None
+        if nlk:
+            with TR.span("dispatch"):
+                a_stack, s_stack = ph.compress(advice_dev, fixed_dev, inst_dev, theta_m)
+                both = torch.cat([a_stack, s_stack], dim=2).reshape(NL, -1)
+            flat = dom.from_device(both)
+            ap_rows, sp_rows = [], []
+            for u, rng in enumerate(rngs):
+                base = u * 2 * nlk * n
+                with TR.span("lookup_sort", u):
+                    perms = [_permute_expression_pair(
+                        flat[base + li * n : base + (li + 1) * n],
+                        flat[base + (nlk + li) * n : base + (nlk + li + 1) * n], usable)
+                        for li in range(nlk)]
+                # per lookup, A' then S' blinders: the reference's draw order
+                with TR.span("blinding_draws", u):
+                    a_perms, s_perms = [], []
+                    for a_perm, s_perm in perms:
+                        a_perms.append(a_perm + [rng.next_field() for _ in range(blinders + 1)])
+                        s_perms.append(s_perm + [rng.next_field() for _ in range(blinders + 1)])
+                ap_rows.append(a_perms)
+                sp_rows.append(s_perms)
+            ap_stack = cols(ap_rows)
+            sp_stack = cols(sp_rows)
+            # per user, per lookup: A' then S'
+            beta_gamma = absorb(commit(params.g_lagrange, torch.stack([ap_stack, sp_stack], dim=3),
+                                       2 * nlk), squeezes=2)
+        else:
+            beta_gamma = absorb([[] for _ in range(U)], squeezes=2)
 
     # ---- phase 3: grand products + random poly ----------------------------
-    beta_m = scalars([[b] for b, _ in beta_gamma])
-    gamma_m = scalars([[g] for _, g in beta_gamma])
-    lk = (a_stack, s_stack, ap_stack, sp_stack) if nlk else None
-    z_stack = ph.grand(advice_dev, fixed_dev, inst_dev, sigma_dev, beta_m, gamma_m, lk)
-    # blinding rows splice in on device (same rng draw order as the reference)
-    blind = cols([[[rng.next_field() for _ in range(blinders)] for _ in range(nz)]
-                  for rng in rngs])
-    z_stack = torch.cat([z_stack[..., : usable + 1], blind], dim=-1)
-    finish_z = MSM.msm_commit_dev_async(params.g_lagrange, z_stack.reshape(NL, -1, n))
-    random_dev = scalars([[rng.next_field() for _ in range(n)] for rng in rngs])  # coefficients
-    finish_r = MSM.msm_commit_dev_async(params.g, random_dev.reshape(NL, -1, n))
+    with TR.phase("phase3 grand products+commits", report):
+        beta_m = scalars([[b] for b, _ in beta_gamma])
+        gamma_m = scalars([[g] for _, g in beta_gamma])
+        lk = (a_stack, s_stack, ap_stack, sp_stack) if nlk else None
+        with TR.span("dispatch"):
+            z_stack = ph.grand(advice_dev, fixed_dev, inst_dev, sigma_dev, beta_m, gamma_m, lk)
+        # blinding rows splice in on device (same rng draw order as the reference)
+        blind_rows = []
+        for u, rng in enumerate(rngs):
+            with TR.span("blinding_draws", u):
+                blind_rows.append([[rng.next_field() for _ in range(blinders)] for _ in range(nz)])
+        blind = cols(blind_rows)
+        z_stack = torch.cat([z_stack[..., : usable + 1], blind], dim=-1)
+        finish_z = MSM.msm_commit_dev_async(params.g_lagrange, z_stack.reshape(NL, -1, n))
+        random_rows = []
+        for u, rng in enumerate(rngs):
+            with TR.span("blinding_draws", u):
+                random_rows.append([rng.next_field() for _ in range(n)])  # coefficients
+        random_dev = scalars(random_rows)
+        finish_r = MSM.msm_commit_dev_async(params.g, random_dev.reshape(NL, -1, n))
 
-    # per-proof columns: one batched Lagrange -> coeff -> extended transform,
-    # issued before the phase-3 commitments are read back
-    group_tensors = [advice_dev, inst_dev, z_stack[:, :, :nperm]]
-    group_names = ["advice", "instance", "perm_z"]
-    if nlk:
-        group_tensors += [z_stack[:, :, nperm:], ap_stack, sp_stack]
-        group_names += ["lookup_z", "lookup_a", "lookup_s"]
-    offsets = {}
-    ptr = 0
-    for name, tensor in zip(group_names, group_tensors):
-        offsets[name] = ptr
-        ptr += tensor.shape[2]
-    transform, gates = _split_quotient_fns(cs, dom, dict(offsets), st_offsets, nperm, chunk,
-                                           blinders)
-    dyn_coeff, dyn_ext = transform(torch.cat(group_tensors, dim=2))
-    for name, off in st_offsets.items():  # the split layout: per-proof, then static
-        offsets[name] = ptr + off
+        # per-proof columns: one batched Lagrange -> coeff -> extended transform,
+        # issued before the phase-3 commitments are read back
+        with TR.span("dispatch"):
+            group_tensors = [advice_dev, inst_dev, z_stack[:, :, :nperm]]
+            group_names = ["advice", "instance", "perm_z"]
+            if nlk:
+                group_tensors += [z_stack[:, :, nperm:], ap_stack, sp_stack]
+                group_names += ["lookup_z", "lookup_a", "lookup_s"]
+            offsets = {}
+            ptr = 0
+            for name, tensor in zip(group_names, group_tensors):
+                offsets[name] = ptr
+                ptr += tensor.shape[2]
+            transform, gates = _split_quotient_fns(cs, dom, dict(offsets), st_offsets, nperm,
+                                                   chunk, blinders)
+            dyn_coeff, dyn_ext = transform(torch.cat(group_tensors, dim=2))
+        for name, off in st_offsets.items():  # the split layout: per-proof, then static
+            offsets[name] = ptr + off
 
-    zpts, rpts = finish_z(), finish_r()
-    ys = absorb([zpts[u * nz : (u + 1) * nz] + [rpts[u]] for u in range(U)])
-    clock.mark("phase3 grand products+commits")
+        zpts, rpts = finish_z(), finish_r()
+        ys = absorb([zpts[u * nz : (u + 1) * nz] + [rpts[u]] for u in range(U)])
 
     # ---- phase 4: quotient on the extended domain -------------------------
-    h_coeff_dev = gates(dyn_ext, st_ext, theta_m, beta_m, gamma_m, scalars(ys))
-    xs = [x for (x,) in absorb(commit(params.g, h_coeff_dev[..., : num_h * n], num_h))]
-    clock.mark("phase4 quotient+commit")
+    with TR.phase("phase4 quotient+commit", report):
+        ys_m = scalars(ys)
+        with TR.span("dispatch"):
+            h_coeff_dev = gates(dyn_ext, st_ext, theta_m, beta_m, gamma_m, ys_m)
+        xs = [x for (x,) in absorb(commit(params.g, h_coeff_dev[..., : num_h * n], num_h))]
 
     # ---- phase 5: evaluations ---------------------------------------------
-    opened = [_opening_points(cs, sets, x, omega, n, blinders) for x in xs]
-    points = [list(pt_idx) for *_, pt_idx in opened]
-    npts = len(points[0])
-    if any(len(row) != npts for row in points):
-        raise ValueError("opening-point collision")
-    xn_m = scalars([[F.fr_pow(F.fr_pow(x, n), i) for i in range(num_h)] for x in xs])
-    pts_m = scalars(points)
-    p56 = _phase56_fns(dom, offsets, num_h, sets)
-    evs_dev, rand_evals, quot_evals, tail_zero = p56.eval_all(
-        dyn_coeff, st_coeff, h_coeff_dev, random_dev, xn_m, pts_m)
-    if not bool(tail_zero):
-        raise ValueError("quotient degree overflow")
-    ncols_total = evs_dev.shape[2]
-    allv = dom.from_device(torch.cat([evs_dev.reshape(NL, U, -1), rand_evals, quot_evals],
-                                     dim=-1).reshape(NL, -1))
-    ustride = (ncols_total + 2) * npts
+    with TR.phase("phase5 evaluations", report):
+        opened = [_opening_points(cs, sets, x, omega, n, blinders) for x in xs]
+        points = [list(pt_idx) for *_, pt_idx in opened]
+        npts = len(points[0])
+        if any(len(row) != npts for row in points):
+            raise ValueError("opening-point collision")
+        xn_m = scalars([[F.fr_pow(F.fr_pow(x, n), i) for i in range(num_h)] for x in xs])
+        pts_m = scalars(points)
+        p56 = _phase56_fns(dom, offsets, num_h, sets)
+        with TR.span("dispatch"):
+            evs_dev, rand_evals, quot_evals, tail_zero = p56.eval_all(
+                dyn_coeff, st_coeff, h_coeff_dev, random_dev, xn_m, pts_m)
+        with TR.span("readback"):
+            degree_ok = bool(tail_zero)
+        if not degree_ok:
+            raise ValueError("quotient degree overflow")
+        ncols_total = evs_dev.shape[2]
+        allv = dom.from_device(torch.cat([evs_dev.reshape(NL, U, -1), rand_evals, quot_evals],
+                                         dim=-1).reshape(NL, -1))
+        ustride = (ncols_total + 2) * npts
 
-    def evaluator(u):
-        pt_idx, base = opened[u][-1], u * ustride
+        def evaluator(u):
+            pt_idx, base = opened[u][-1], u * ustride
 
-        def ev(poly, point) -> int:
-            if poly[0] == "random":
-                col = ncols_total
-            elif poly[0] == "quotient":
-                col = ncols_total + 1
-            else:
-                col = offsets[poly[0]] + poly[1]
-            return allv[base + col * npts + pt_idx[point]]
-        return ev
+            def ev(poly, point) -> int:
+                if poly[0] == "random":
+                    col = ncols_total
+                elif poly[0] == "quotient":
+                    col = ncols_total + 1
+                else:
+                    col = offsets[poly[0]] + poly[1]
+                return allv[base + col * npts + pt_idx[point]]
+            return ev
 
-    evs = [evaluator(u) for u in range(U)]
-    for t, ev, x, (x_next, x_prev, x_last, _, _) in zip(ts, evs, xs, opened):
-        _write_evaluations(t, cs, ev, x, omega, n, nperm, x_next, x_prev, x_last)
-    zeta_nu = [(t.squeeze_challenge(), t.squeeze_challenge()) for t in ts]
-    clock.mark("phase5 evaluations")
+        evs = [evaluator(u) for u in range(U)]
+        with TR.span("transcript"):
+            for t, ev, x, (x_next, x_prev, x_last, _, _) in zip(ts, evs, xs, opened):
+                _write_evaluations(t, cs, ev, x, omega, n, nperm, x_next, x_prev, x_last)
+            zeta_nu = [(t.squeeze_challenge(), t.squeeze_challenge()) for t in ts]
 
     # ---- phase 6: SHPLONK multiopen ---------------------------------------
-    max_polys = max(len(polys) for _, polys in sets)
-    max_rots = max(len(rots) for rots, _ in sets)
-    zeta_rows = [[pow(zeta, i, P) for i in range(max_polys)] for zeta, _ in zeta_nu]
-    nu_rows = [[pow(nu, j, P) for j in range(len(sets))] for _, nu in zeta_nu]
-    interp = [_set_interpolations(sets, point_of, ev, zr, max_rots)
-              for (*_, point_of, _), ev, zr in zip(opened, evs, zeta_rows)]
-    set_pt_idx = {tuple(tuple(pt_idx[point_of[r]] for r in rots) for rots, _ in sets)
-                  for _, _, _, point_of, pt_idx in opened}
-    if len(set_pt_idx) != 1:
-        raise ValueError("set/point structure diverged across users")
-    h_x_dev, f_stack = p56.open_w(
-        dyn_coeff, st_coeff, h_coeff_dev, random_dev, xn_m, scalars(zeta_rows),
-        scalars(nu_rows), cols([r_rows for _, r_rows in interp]), pts_m,
-        scalars([[pow(p, -1, P) for p in row] for row in points]), set_pt_idx.pop())
-    mus = [mu for (mu,) in absorb(commit(params.g, h_x_dev, 1))]
-    clock.mark("phase6a shplonk W")
+    with TR.phase("phase6a shplonk W", report):
+        max_polys = max(len(polys) for _, polys in sets)
+        max_rots = max(len(rots) for rots, _ in sets)
+        zeta_rows = [[pow(zeta, i, P) for i in range(max_polys)] for zeta, _ in zeta_nu]
+        nu_rows = [[pow(nu, j, P) for j in range(len(sets))] for _, nu in zeta_nu]
+        interp = [_set_interpolations(sets, point_of, ev, zr, max_rots)
+                  for (*_, point_of, _), ev, zr in zip(opened, evs, zeta_rows)]
+        set_pt_idx = {tuple(tuple(pt_idx[point_of[r]] for r in rots) for rots, _ in sets)
+                      for _, _, _, point_of, pt_idx in opened}
+        if len(set_pt_idx) != 1:
+            raise ValueError("set/point structure diverged across users")
+        with TR.span("dispatch"):
+            h_x_dev, f_stack = p56.open_w(
+                dyn_coeff, st_coeff, h_coeff_dev, random_dev, xn_m, scalars(zeta_rows),
+                scalars(nu_rows), cols([r_rows for _, r_rows in interp]), pts_m,
+                scalars([[pow(p, -1, P) for p in row] for row in points]), set_pt_idx.pop())
+        mus = [mu for (mu,) in absorb(commit(params.g, h_x_dev, 1))]
 
-    wp = [_wprime_scalars(sets, point_of, set_evals, nu_pows, mu)
-          for (*_, point_of, _), (set_evals, _), nu_pows, mu in zip(opened, interp, nu_rows, mus)]
-    w_prime_dev = p56.open_wprime(
-        f_stack, h_x_dev, scalars([c for c, _, _ in wp]), scalars([[z0] for _, z0, _ in wp]),
-        scalars([[tr] for _, _, tr in wp]), scalars([[mu] for mu in mus]),
-        scalars([[pow(mu, -1, P)] for mu in mus]))
-    proofs = []
-    for t, (pt,) in zip(ts, commit(params.g, w_prime_dev, 1)):
-        t.write_point(pt)
-        proofs.append(t.finalize())
-    clock.mark("phase6b shplonk W'")
+    with TR.phase("phase6b shplonk W'", report):
+        wp = [_wprime_scalars(sets, point_of, set_evals, nu_pows, mu)
+              for (*_, point_of, _), (set_evals, _), nu_pows, mu
+              in zip(opened, interp, nu_rows, mus)]
+        with TR.span("dispatch"):
+            w_prime_dev = p56.open_wprime(
+                f_stack, h_x_dev, scalars([c for c, _, _ in wp]),
+                scalars([[z0] for _, z0, _ in wp]), scalars([[tr] for _, _, tr in wp]),
+                scalars([[mu] for mu in mus]), scalars([[pow(mu, -1, P)] for mu in mus]))
+        w_primes = commit(params.g, w_prime_dev, 1)
+        proofs = []
+        with TR.span("transcript"):
+            for t, (pt,) in zip(ts, w_primes):
+                t.write_point(pt)
+                proofs.append(t.finalize())
     return proofs
 
 

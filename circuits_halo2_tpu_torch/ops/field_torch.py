@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import build
+from ..utils import tracing as TR
 from . import field as F
 
 NLIMBS = 16
@@ -67,13 +68,13 @@ def ints_to_limbs(xs, nlimbs: int = NLIMBS) -> np.ndarray:
 
 
 def limbs_to_int(limbs) -> int:
-    arr = _as_numpy(limbs)
+    arr = as_numpy(limbs)
     return sum(int(arr[i]) << (LIMB_BITS * i) for i in range(arr.shape[0]))
 
 
 def limbs_to_ints(limbs) -> list[int]:
     """(nlimbs, N) normalised limbs -> list of N ints."""
-    arr = np.ascontiguousarray(_as_numpy(limbs).T.astype("<u2"))
+    arr = np.ascontiguousarray(as_numpy(limbs).T.astype("<u2"))
     if arr.shape[0] == 0:
         return []
     step = arr.shape[1] * 2
@@ -84,10 +85,18 @@ def limbs_to_ints(limbs) -> list[int]:
     ]
 
 
-def _as_numpy(limbs) -> np.ndarray:
-    if isinstance(limbs, torch.Tensor):
-        return limbs.detach().cpu().numpy()
-    return np.asarray(limbs)
+def as_numpy(limbs) -> np.ndarray:
+    """Limbs on the host; a device tensor is read back (the one place limbs
+    come back from the card: a ``readback`` span, ``d2h_bytes`` counted)."""
+    if not isinstance(limbs, torch.Tensor):
+        return np.asarray(limbs)
+    if limbs.device.type == "cpu":
+        return limbs.detach().numpy()
+    with TR.span("readback"):
+        host = limbs.detach().cpu().numpy()
+    if TR.on:
+        TR.count("copy", "field_torch", d2h_bytes=host.nbytes)
+    return host
 
 
 class FieldSpec:
@@ -333,6 +342,9 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec = FR) -> torch.Te
     lib, out, meta, field, stream = _launch_args("mont_mul", spec, a, b)
     if out.numel():
         mont_mul.launches += 1
+        if TR.on:
+            TR.count("kernel", "X0a", launches=1, elements=out[0].numel(),
+                     operands=TR.own_elements(a) + TR.own_elements(b))
         build.check(lib.field_mont_mul_cuda(a.data_ptr(), b.data_ptr(), out.data_ptr(), meta,
                                             out.dim() - 1, field, stream), "field_mont_mul_cuda")
     return out
@@ -358,6 +370,9 @@ def linear(op: int, a: torch.Tensor, b: torch.Tensor | None, spec: FieldSpec = F
     lib, out, meta, field, stream = _launch_args("linear", spec, a, b)
     if out.numel():
         linear.launches += 1
+        if TR.on:
+            TR.count("kernel", "X0b", launches=1, elements=out[0].numel(),
+                     operands=TR.own_elements(a) + (0 if op == NEG else TR.own_elements(b)))
         build.check(lib.field_linear_cuda(op, a.data_ptr(), b.data_ptr(), out.data_ptr(), meta,
                                           out.dim() - 1, field, stream), "field_linear_cuda")
     return out
@@ -432,6 +447,9 @@ def inv_mont(a: torch.Tensor, spec: FieldSpec = FR) -> torch.Tensor:
     lib, out, meta, field, stream = _launch_args("inv_mont", spec, a, a)
     if out.numel():
         inv_mont.launches += 1
+        if TR.on:
+            TR.count("kernel", "X0c", launches=1, elements=out[0].numel(),
+                     operands=TR.own_elements(a))
         build.check(lib.field_inv_cuda(a.data_ptr(), out.data_ptr(), meta, out.dim() - 1,
                                        _r3_words(spec.mod_int), field, stream), "field_inv_cuda")
     return out

@@ -36,6 +36,7 @@ from . import field_torch as FT
 from . import msm_kernel as MK
 from .. import native
 from ..parallel import auto
+from ..utils import tracing as TR
 
 FQ = FT.FQ
 
@@ -84,7 +85,9 @@ def jac_double(p):
 def _select_double(use_dbl, p, out):
     """Replace lanes of ``out`` by 2p where ``use_dbl``; the doubling is
     computed only if some lane needs it (the result is the same)."""
-    if not bool(use_dbl.any()):
+    with TR.span("readback"):
+        needed = bool(use_dbl.any())
+    if not needed:
         return out
     dbl = jac_double(p)
     return tuple(FT.select(use_dbl, d, o) for d, o in zip(dbl, out))
@@ -272,24 +275,25 @@ def _combine_windows_host(acc) -> list:
     """(16, B, NWIN, 2·SPLIT) Jacobian partial sums -> B host affine points.
 
     point_b = sum_{w, i} PARTIAL_WEIGHTS[i]·2^(8w)·S[b, w, i], by the native
-    host Pippenger over each row's small points."""
-    q = F.FQ_MOD
-    ax, ay, az = (FT.from_mont_ints(c.reshape(FT.NLIMBS, -1), FQ) for c in acc)
-    nb = acc[0].shape[1]
-    out = []
-    i = 0
-    for _ in range(nb):
-        pts, scal = [], []
-        for w in range(NWIN):
-            for weight in PARTIAL_WEIGHTS:
-                if az[i] and weight:
-                    zi = pow(az[i], -1, q)
-                    zi2 = zi * zi % q
-                    pts.append((ax[i] * zi2 % q, ay[i] * zi2 % q * zi % q))
-                    scal.append(weight << (WINDOW * w))
-                i += 1
-        out.append(native.g1_msm(pts, scal) if pts else None)
-    return out
+    host Pippenger over each row's small points (X2's host side)."""
+    with TR.span("msm_combine"):
+        q = F.FQ_MOD
+        ax, ay, az = (FT.from_mont_ints(c.reshape(FT.NLIMBS, -1), FQ) for c in acc)
+        nb = acc[0].shape[1]
+        out = []
+        i = 0
+        for _ in range(nb):
+            pts, scal = [], []
+            for w in range(NWIN):
+                for weight in PARTIAL_WEIGHTS:
+                    if az[i] and weight:
+                        zi = pow(az[i], -1, q)
+                        zi2 = zi * zi % q
+                        pts.append((ax[i] * zi2 % q, ay[i] * zi2 % q * zi % q))
+                        scal.append(weight << (WINDOW * w))
+                    i += 1
+            out.append(native.g1_msm(pts, scal) if pts else None)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -369,17 +373,18 @@ def msm_commit_dev_async(points, scal_mont: torch.Tensor):
     if scal_mont.dim() != 3 or scal_mont.shape[2] > len(points):
         raise ValueError(f"scal_mont must be (16, B, m <= {len(points)}), got {tuple(scal_mont.shape)}")
     b = int(scal_mont.shape[1])
-    xs, ys, valid = precompute_bases(points, scal_mont.device)
-    n = int(xs.shape[1])
-    chunk_b = _batch_chunk(b, n)
-    commit = _commit_dev
-    mesh = _active_mesh(n)
-    if mesh is not None:
-        from ..parallel import msm_sharded
+    with TR.span("dispatch"):
+        xs, ys, valid = precompute_bases(points, scal_mont.device)
+        n = int(xs.shape[1])
+        chunk_b = _batch_chunk(b, n)
+        commit = _commit_dev
+        mesh = _active_mesh(n)
+        if mesh is not None:
+            from ..parallel import msm_sharded
 
-        commit = functools.partial(msm_sharded.commit_sharded_device, mesh)
-    accs = [commit(xs, ys, valid, scal_mont[:, lo : lo + chunk_b])
-            for lo in range(0, b, chunk_b)]
+            commit = functools.partial(msm_sharded.commit_sharded_device, mesh)
+        accs = [commit(xs, ys, valid, scal_mont[:, lo : lo + chunk_b])
+                for lo in range(0, b, chunk_b)]
 
     def finish():
         out = []

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
+from ..utils import tracing as TR
 from . import field_torch as FT
 
 def _lanes(px: torch.Tensor, L: int) -> int:
@@ -73,6 +74,8 @@ def segmented_scan(px, py, pvalid, seg, L: int):
     outs = [torch.empty_like(px) for _ in range(3)]
     stream = torch.cuda.current_stream(px.device).cuda_stream
     segmented_scan.launches += 1
+    if TR.on:
+        TR.count("kernel", "K3", launches=1, points=points)
     build.check(
         lib.msm_scan_cuda(sg.data_ptr(), vs.data_ptr(), px.data_ptr(), py.data_ptr(),
                           outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),

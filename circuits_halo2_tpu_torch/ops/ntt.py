@@ -36,6 +36,7 @@ from .. import build
 from . import field as F
 from . import field_torch as FT
 from ..parallel import auto
+from ..utils import tracing as TR
 
 
 def bit_reverse_indices(n: int) -> np.ndarray:
@@ -286,6 +287,9 @@ def ntt_passes(a: torch.Tensor, omega: int, n: int, in_scale: Lanes | None = Non
     so, so_step = _factor(out_scale, n, a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     ntt_passes.launches += passes
+    if TR.on:  # the problem: rows transforms of n_in lanes in, n points and log2 n stages out
+        TR.count("kernel", "X1", launches=passes, rows=rows, inputs=rows * n_in,
+                 points=rows * n, stage_points=rows * n * logn)
     build.check(lib.ntt_cuda(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), tw.data_ptr(),
                              si, si_step, so, so_step, rows, n_in, logn, stream), "ntt_cuda")
     return out

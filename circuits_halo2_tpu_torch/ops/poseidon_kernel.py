@@ -22,6 +22,7 @@ from . import field as F
 from . import field_torch as FT
 from . import poseidon as PS
 from .. import build
+from ..utils import tracing as TR
 
 
 def _mont(x: int) -> int:
@@ -111,6 +112,8 @@ def hash_batch(inputs: torch.Tensor) -> torch.Tensor:
     cap_np = np.ascontiguousarray(cap.numpy().reshape(8))
     stream = torch.cuda.current_stream(inputs.device).cuda_stream
     hash_batch.launches += 1
+    if TR.on:  # n messages of ``length`` elements, a permutation each element
+        TR.count("kernel", "K1", launches=1, messages=n, elements=length * n)
     build.check(
         lib.poseidon_hash_batch_cuda(words.data_ptr(), out.data_ptr(), length, n,
                                      cap_np.ctypes.data, stream),

@@ -10,12 +10,14 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from .. import native
 from ..ops import field as F
 from ..ops import field_torch as FT
 from ..ops import ntt as NTT
+from . import tracing as TR
 
 P = F.FR_MOD
 R_INV = pow(1 << 256, -1, P)
@@ -165,17 +167,33 @@ class Domain:
 
     def to_device(self, values: list[int]) -> torch.Tensor:
         """Host ints -> (16, len) Montgomery limbs."""
-        return torch.as_tensor(FT.to_mont_limbs(values), device=self.device)
+        with TR.span("to_limbs"):
+            flat = FT.to_mont_limbs(values)
+        return self._copy(flat)
 
     def cols_to_device(self, cols: list[list[int]]) -> torch.Tensor:
         """B same-length host columns -> (16, B, n) Montgomery."""
-        flat = FT.to_mont_limbs([v for col in cols for v in col])
-        return torch.as_tensor(flat.reshape(FT.NLIMBS, len(cols), len(cols[0])),
-                               device=self.device)
+        with TR.span("to_limbs"):
+            flat = FT.to_mont_limbs([v for col in cols for v in col])
+        return self._copy(flat.reshape(FT.NLIMBS, len(cols), len(cols[0])))
+
+    def _copy(self, limbs: np.ndarray) -> torch.Tensor:
+        """Host limbs to the domain's device (a copy that waits for the
+        stream's queued work, so a span of its own)."""
+        if self.device.type == "cpu":
+            return torch.as_tensor(limbs)
+        with TR.span("h2d"):
+            out = torch.as_tensor(limbs, device=self.device)
+        if TR.on:
+            TR.count("copy", "poly_device", h2d_bytes=limbs.nbytes)
+        return out
 
     def from_device(self, limbs: torch.Tensor) -> list[int]:
-        """(16, N) Montgomery limbs -> N canonical ints."""
-        return FT.from_mont_ints(limbs)
+        """(16, N) Montgomery limbs -> N canonical ints (read back first,
+        then converted)."""
+        host = FT.as_numpy(limbs)
+        with TR.span("from_limbs"):
+            return FT.from_mont_ints(host)
 
     # -- tables -------------------------------------------------------------
 

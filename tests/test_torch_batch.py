@@ -18,6 +18,7 @@ from circuits_halo2_tpu_torch.models.prover import BlindingRng, prove
 from circuits_halo2_tpu_torch.models.prover_batch import prove_batch
 from circuits_halo2_tpu_torch.models.verifier import verify
 from circuits_halo2_tpu_torch.utils import pipeline
+from circuits_halo2_tpu_torch.utils import tracing as TR
 from circuits_halo2_tpu_torch.utils.transcript import Blake2bTranscript
 
 torch.set_num_threads(2)
@@ -38,10 +39,23 @@ def setup():
 
 
 @pytest.fixture(scope="module")
-def keccak_batch(setup):
+def traced_keccak_batch(setup):
+    """The Keccak batch of users 0 and 1, proved with ``utils/tracing``
+    recording: (proofs, (spans, counts))."""
     art, circuits = setup
-    return prove_batch(art.params, art.pk, circuits, art.config,
-                       [c.instances() for c in circuits], vk_digest=VK_DIGEST, device="cpu")
+    TR.drain()
+    TR.enable()
+    try:
+        proofs = prove_batch(art.params, art.pk, circuits, art.config,
+                             [c.instances() for c in circuits], vk_digest=VK_DIGEST, device="cpu")
+    finally:
+        TR.disable()
+    return proofs, TR.drain()
+
+
+@pytest.fixture(scope="module")
+def keccak_batch(traced_keccak_batch):
+    return traced_keccak_batch[0]
 
 
 def _verifies_and_rejects_flipped(art, proof, instances, **kw):
@@ -53,6 +67,48 @@ def _verifies_and_rejects_flipped(art, proof, instances, **kw):
 
 def test_batch_user0_equals_jax_keccak_proof(keccak_batch):
     assert keccak_batch[0].hex() == FIX["keccak_vk_digest_proof"]
+
+
+PHASES = ["phase1 synth+advice commits", "phase2 lookup permute+commit",
+          "phase3 grand products+commits", "phase4 quotient+commit", "phase5 evaluations",
+          "phase6a shplonk W", "phase6b shplonk W'"]
+
+
+def test_traced_batch_has_its_leaf_spans_inside_the_phases(traced_keccak_batch):
+    """With tracing on, the proof bytes stay the JAX package's; every span
+    but the Domain's first conversions lies inside one of the call's
+    phases, the per-user spans carry users 0 and 1, and each of phases 1-4
+    holds its layers' leaf spans."""
+    proofs, (spans, counts) = traced_keccak_batch
+    assert proofs[0].hex() == FIX["keccak_vk_digest_proof"]
+    roots = [s for s in spans if s.parent is None]
+    phases = [s for s in roots if s.name in PHASES]
+    assert [p.name for p in phases] == PHASES
+    assert {s.name for s in roots} - set(PHASES) <= {"to_limbs"}  # the Domain's first build
+    assert len({s.call for s in spans}) == 1 and spans[0].call is not None
+    by_id = {s.id: s for s in spans}
+    parents = {s.parent for s in spans}
+    leaves: dict[str, set] = {s.name: set() for s in roots}
+    inside: dict[str, set] = {s.name: set() for s in roots}
+    for s in spans:
+        top = s
+        while top.parent is not None:
+            parent = by_id[top.parent]
+            assert parent.start <= top.start <= top.end <= parent.end
+            top = parent
+        inside[top.name].add(s.name)
+        if s.id not in parents:
+            leaves[top.name].add(s.name)
+    for name in ("synthesize", "lookup_sort", "blinding_draws"):
+        assert {s.user for s in spans if s.name == name} == {0, 1}
+    assert {"transcript", "synthesize", "blinding_draws", "to_limbs", "msm_combine"} <= \
+        leaves[PHASES[0]]
+    assert {"from_limbs", "lookup_sort", "blinding_draws", "msm_combine", "transcript"} <= \
+        leaves[PHASES[1]]
+    assert {"to_limbs", "blinding_draws", "msm_combine", "transcript"} <= leaves[PHASES[2]]
+    assert {"to_limbs", "msm_combine", "transcript"} <= leaves[PHASES[3]]
+    assert all("dispatch" in inside[p] for p in PHASES)
+    assert counts == {}  # no kernel and no copy on the CPU
 
 
 def test_batch_user1_equals_single_prove(setup, keccak_batch):
