@@ -3,17 +3,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``circuits_halo2_tpu_torch/csrc``,
-checks each of the twelve (K1-K6, X4 the EC-FFT, X0a-X0c the field
+checks each of the thirteen (K1-K6, X4 the EC-FFT, X0a-X0c the field
 arithmetic and the inversion, the power chain, X1 the NTT) against its
-plain torch version on the
-card (X4 at the path's 2^10 and 2^13 in two child processes, beside the
+plain torch version on the card, and X2, the MSM's window combine, against
+the host's fold of the same partials (X4 at the path's 2^10 and 2^13 in two child processes, beside the
 other checks; at 2^16, where the card is full, against setup(16)'s
 analytic Lagrange bases; X0 and X1 at the prover's shapes, their plain
 versions run inside ``field_torch.plain()``), then drives seven paths
 through their user entry points, each with the launch counts set to 0
 just before it and read just after:
 
-- the proving path (K1, K3, X4, X0a-X0c and X1; the power chain is off
+- the proving path (K1, K3, X2, X4, X0a-X0c and X1; the power chain is off
   every path since the inversion has its own kernel, and launches 0):
   - the reference criterion config (a 2^20-entry Merkle sum tree,
     N_CURRENCIES=1, N_BYTES=8, LEVELS=20, k=13): the tree, its sorted
@@ -29,18 +29,18 @@ just before it and read just after:
   - the north-star config (2^16 entries, 2 currencies, N_BYTES=8,
     LEVELS=16, k=17): tree, keygen, a proof that verifies, and, where the
     fixture has them, the JAX package's north-star proofs byte for byte;
-- the batch prover (K3, X0, X1) on the criterion key: one prove traced phase by
+- the batch prover (K3, X2, X0, X1) on the criterion key: one prove traced phase by
   phase, users 0-3 proved one at a time, then users 0-7 by
   ``prove_batch`` at U=4 and U=8 (each batch proof equal byte for byte to
   the single proof, or to the other batch size's), and users 0-1 with
   Blake2b at U=2 (user 0 equal to the criterion proof); proofs per minute
   and peak memory;
-- the operator's round at the criterion width (K1, K3, X0, X1): a 2^20-entry
+- the operator's round at the criterion width (K1, K3, X2, X0, X1): a 2^20-entry
   ``MerkleSumTree.from_entries`` (root equal to ``build_device_tree``'s),
   ``Round`` on a k=13 SRS file, the ownership proofs, the commitment, two
   users' inclusion proofs with the user-side checks, and the verifier
   generated from the VK accepting both in the Yul VM;
-- the incremental inclusion chain (K1, K3, X0, X1): at the reference example's
+- the incremental inclusion chain (K1, K3, X2, X0, X1): at the reference example's
   size (entry_16 rounds 1-3) the step chain at k=11 and the chained SNARK
   at k=13 equal to the JAX package's bytes
   (tests/fixtures_torch_incremental.json); at the criterion width three
@@ -52,7 +52,7 @@ just before it and read just after:
 - the recursion example (``examples/nova_incremental_verifier``: the
   circom-parity chain, the k=11 step chain on the card, NIFS folding and
   Spartan compression) in a child process started after the kernel build;
-- the rank mesh (``parallel/*``; K1, K3, X0, X1), each rank a child process of
+- the rank mesh (``parallel/*``; K1, K3, X2, X0, X1), each rank a child process of
   ``parallel/worker.launch``: a 4-rank gloo world on the one card (asked
   for explicitly; its collectives staged through host memory, since NCCL
   refuses two ranks on one GPU) whose every rank hashes and reduces the
@@ -311,6 +311,50 @@ def check_k3(device, rng, report):
             if commits != host:
                 raise AssertionError(f"msm_commit_dev differs from native g1_msm at {what}")
             log(f"msm_commit_dev at {what} (0, p-1, P+(-P), None base) == native g1_msm")
+
+
+def x2_partials(device, rng, batch: int):
+    """K3's window partials of ``batch`` random commitments over setup(13)'s
+    Lagrange bases (the bucket stage in chunks of 16, concatenated); the
+    first commitment's scalars hold 0 and p - 1, the second's are all 0."""
+    from circuits_halo2_tpu_torch.ops import field_torch as FT
+    from circuits_halo2_tpu_torch.ops import msm as M
+    from circuits_halo2_tpu_torch.utils.srs import setup_cached
+
+    n = 1 << 13
+    xs, ys, valid = M.precompute_bases(setup_cached(13).g_lagrange, device)
+    rows = [random_fr(rng, n) for _ in range(batch)]
+    rows[0][0], rows[0][1] = 0, FT.FR.mod_int - 1
+    if batch > 1:
+        rows[1] = [0] * n
+    scal = torch.as_tensor(FT.to_mont_limbs([v for r in rows for v in r]).reshape(16, batch, n),
+                           device=device)
+    parts = [M._commit_dev(xs, ys, valid, scal[:, lo : lo + 16]) for lo in range(0, batch, 16)]
+    return tuple(torch.cat([p[c] for p in parts], dim=1) for c in range(3))
+
+
+def check_x2(device, rng, report):
+    """X2 against the host's fold of the same partials (K3's, at k=13) for
+    1, 16 and 48 commitments."""
+    from circuits_halo2_tpu_torch.ops import msm as M
+    from circuits_halo2_tpu_torch.ops import msm_kernel as MK
+
+    for batch in (1, 16, 48):
+        acc = x2_partials(device, rng, batch)
+        got = M._affine_from_rows(MK.window_combine(*acc))
+        require(got == M._combine_windows_host(tuple(c.cpu() for c in acc)),
+                f"X2 differs from the host fold at k=13, B={batch}")
+        log(f"X2 k=13 B={batch}: equal to the host fold ({got.count(None)} at infinity)")
+    report["x2_err"] = 0
+
+
+def x2_bound(batch: int) -> tuple[float, str]:
+    """X2's least time: the larger of its serial chain at one instruction a
+    clock (two a wide multiply, the maximum clock) and the card's bound on
+    its work and bytes."""
+    chain_ms = X2_CHAIN * 2 / 1.98e9 * 1e3
+    card_ms, by = bound_ms(batch * X2_WORK, 0, batch * X2_BYTES)
+    return (chain_ms, "the serial chain") if chain_ms >= card_ms else (card_ms, by)
 
 
 def check_k2(device, rng, report):
@@ -584,6 +628,13 @@ def pow_wide(exponent: int) -> int:
 # (d, e) and (f, g), 9 limbs each, 6 and 4 signed 32 x 32 -> 64 products a
 # limb and 4 for the corrections, then the product by R^3
 INV_WIDE = 25 * (9 * 6 + 9 * 4 + 4) + MUL
+# X2 a commitment (csrc/msm_combine.cu): its serial chain -- the running sum's
+# 28 complete adds, the fold's 252 doublings and 6 adds, the inversion and 6
+# products -- and its work, 64 threads' 28 adds and the fold's 768
+# doublings and 6 adds
+X2_CHAIN = 34 * ADD_WIDE + 252 * DBL_WIDE + INV_WIDE + 6 * MUL
+X2_WORK = (64 * 28 + 6) * ADD_WIDE + 768 * DBL_WIDE + INV_WIDE + 6 * MUL
+X2_BYTES = 3 * 32 * 32 * LIMB_FE  # a commitment's partials, read once
 X0_KERNEL_NAMES = {"x0a": ("mont_mul_kernel",), "x0b": ("linear_kernel",),
                    "x0c": ("inv_kernel",), "x0c_pow": ("pow_kernel",), "x1": ("ntt_pass_kernel",)}
 
@@ -1471,7 +1522,8 @@ def parallel_rank(mesh, leaves: str, root: str, sums: list, fixed: list,
     verify_and_flip(art, bytes.fromhex(proof), circuit.instances(), name, KeccakTranscript)
     return {"rank": mesh.rank, "k1": PK.hash_batch.launches, "k3": MK.segmented_scan.launches,
             "x0a": FT.mont_mul.launches, "x0b": FT.linear.launches,
-            "x0c": FT.inv_mont.launches, "x1": NTT.ntt_passes.launches, "seconds": seconds,
+            "x0c": FT.inv_mont.launches, "x1": NTT.ntt_passes.launches,
+            "x2": MK.window_combine.launches, "seconds": seconds,
             "sharded": mesh.sharded, "collectives": mesh.stats.calls,
             "collective_bytes": mesh.stats.nbytes, "collective_seconds": mesh.stats.seconds}
 
@@ -1525,7 +1577,7 @@ def parallel(spawn, card, art, digests, balances, host_root) -> dict:
     """The mesh on the one card: a 4-rank gloo world (its collectives staged
     through host memory: NCCL refuses two ranks on one GPU) and a 1-rank
     NCCL world, each rank a child process of ``parallel/worker.launch``
-    started by ``spawn``. Returns the gloo ranks' K1, K3, X0 and X1 launches
+    started by ``spawn``. Returns the gloo ranks' K1, K3, X0, X1 and X2 launches
     (and the NCCL rank's K3)."""
     from circuits_halo2_tpu_torch import build
     from circuits_halo2_tpu_torch.parallel import worker
@@ -1559,7 +1611,7 @@ def parallel(spawn, card, art, digests, balances, host_root) -> dict:
             f"{nccl['collective_seconds']:.3f} s ({card})")
         log("NCCL rank: the sharded NTT and commitment == single-device results")
     return {"k1": sum(r["k1"] for r in ranks), "k3": sum(r["k3"] for r in ranks) + nccl["k3"],
-            **{key: sum(r[key] for r in ranks) for key in X0_X1}}
+            **{key: sum(r[key] for r in ranks) for key in PROVER_KERNELS}}
 
 
 def entry16(device):
@@ -1819,6 +1871,19 @@ def timings(device, rng, card, probes, report):
             f"{bound_ms(wide)[0]:.4f} ms, bytes of the int64-limb layout "
             f"{bound_ms(0, 0, nbytes)[0]:.4f} ms) ({card})")
 
+    for batch in (16, 48):  # a prover chunk at k=13; three of them in one launch
+        acc = x2_partials(device, rng, batch)
+        ms, per = device_ms(lambda: MK.window_combine(*acc), 10, ("msm_combine_kernel",))
+        host = tuple(c.cpu() for c in acc)
+        t0 = time.perf_counter()
+        M._combine_windows_host(host)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        key = "x2" if batch == 16 else f"x2_b{batch}"
+        out[key] = [ms, host_ms, *x2_bound(batch)]
+        log(f"X2 k=13 window combine B={batch}: device {ms:.4f} ms a launch ({per:.0f} launch "
+            f"a call), the host fold {host_ms:.1f} ms, bound {out[key][2]:.4f} ms "
+            f"({out[key][3]}) ({card})")
+
     x, y = EXP.make_inputs("mxu_mul", EXP.LANES, 3, device)
     wide, tensor = EXP.ops_per_iter("mxu_mul")
     work = EXP.LANES * EXP.ITERS_LO
@@ -1945,8 +2010,10 @@ KERNELS = (  # key, name, source, replaced TPU kernel
     ("x0c_pow", "field_pow", "csrc/field_ops.cu",
      "circuits_halo2_tpu/ops/field_jax.py:397 (XLA, no Pallas)"),
     ("x1", "ntt_passes", "csrc/ntt.cu", "circuits_halo2_tpu/ops/ntt.py:177 (XLA, no Pallas)"),
+    ("x2", "msm_window_combine", "csrc/msm_combine.cu",
+     "circuits_halo2_tpu/ops/msm.py:585 and :617 (the window fold: XLA and host, no Pallas)"),
 )
-X0_X1 = ("x0a", "x0b", "x0c", "x1")  # the kernels of every proving path (not the power chain)
+PROVER_KERNELS = ("x0a", "x0b", "x0c", "x1", "x2")  # every proving path's (not the power chain)
 
 
 X4_CHILDREN = {  # argument of a child process: its X4 check
@@ -2031,6 +2098,8 @@ def run(spawn) -> int:
         check_x4(device, rng, report)
     with Phase("X0a-X0c, X1 vs plain"):
         check_x0_x1(device, report)
+    with Phase("X2 vs the host fold"):
+        check_x2(device, rng, report)
     with Phase(f"X4 at n=2^{X4_BIG} vs the analytic Lagrange bases"):
         x4_analytic(device, report)
     with Phase("X4 vs plain at n=2^10 and 2^13 (child processes; waiting for them)"):
@@ -2050,7 +2119,7 @@ def run(spawn) -> int:
     wrappers = {"k1": PK.hash_batch, "k2": PK.permute, "k3": MK.segmented_scan,
                 "k4": PM.hash_batch_mxu, "k5": EXP.run, "k6": EXP.mxu_mul_once, "x4": EK.ec_fft,
                 "x0a": FT.mont_mul, "x0b": FT.linear, "x0c": FT.inv_mont, "x0c_pow": FT.mont_pow,
-                "x1": NTT.ntt_passes}
+                "x1": NTT.ntt_passes, "x2": MK.window_combine}
     launches = {}
     for w in wrappers.values():
         w.launches = 0
@@ -2061,9 +2130,9 @@ def run(spawn) -> int:
     northstar(device)
     launches.update(k1=PK.hash_batch.launches, k3=MK.segmented_scan.launches,
                     x4=EK.ec_fft.launches, x0c_pow=FT.mont_pow.launches,
-                    **{key: wrappers[key].launches for key in X0_X1})
+                    **{key: wrappers[key].launches for key in PROVER_KERNELS})
     log("proving-path launches: " + ", ".join(f"{key.upper()} {launches[key]}"
-                                              for key in ("k1", "k3", "x4", *X0_X1)))
+                                              for key in ("k1", "k3", "x4", *PROVER_KERNELS)))
 
     def counted(name, kernels, run):
         """Drive one more path with every count set to 0; its kernels must
@@ -2077,15 +2146,15 @@ def run(spawn) -> int:
         for key in (*kernels, "x0c_pow"):
             launches[key] += counts[key]
 
-    counted("batch-prover", ("k3", *X0_X1),
+    counted("batch-prover", ("k3", *PROVER_KERNELS),
             lambda: batch_prover(device, art, tree, entries, blake2b_0, card))
     round_digests = []  # the round's username digests, which the incremental path reuses
-    counted("operator-round", ("k1", "k3", *X0_X1),
+    counted("operator-round", ("k1", "k3", *PROVER_KERNELS),
             lambda: round_digests.append(operator_round(device, card)))
     # the bench's quick stages run beside the incremental path (host-bound)
     # and are joined at the bench path
     suite = start_bench_suite(spawn)
-    counted("incremental", ("k1", "k3", *X0_X1),
+    counted("incremental", ("k1", "k3", *PROVER_KERNELS),
             lambda: incremental(device, card, round_digests[0]))
     with Phase(f"example {EXAMPLE} (child process; waiting for it)"):
         out = example.communicate(timeout=900)[0].strip().splitlines()
@@ -2094,7 +2163,7 @@ def run(spawn) -> int:
         require(example.returncode == 0, f"the example exited with {example.returncode}")
         log(f"example exited 0; joined {time.perf_counter() - example_t0:.1f} s after it was "
             f"started ({card})")
-    counted("parallel", ("k1", "k3", *X0_X1),
+    counted("parallel", ("k1", "k3", *PROVER_KERNELS),
             lambda: parallel(spawn, card, art, digests, balances, host_root))
     counted("bench", ("k1", "k3"), lambda: bench(spawn, card, suite))
 

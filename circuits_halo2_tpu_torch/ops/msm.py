@@ -14,14 +14,20 @@ the point at infinity. The bucket method per commitment batch:
 4. The window sum  sum_b b * B_b: with b = 16g + r on a 16 x 16 bucket grid
    it is  16 * sum_g g * G_g + sum_r r * R_r, where G_g sums grid row g and
    R_r grid column r -- 32 four-level pairwise trees per window.
-5. The host's native Pippenger folds the 32 x 32 partial sums with their
-   weights times 2^(8w) into the final point (``_combine_windows_host``).
+5. The window combine folds the 32 x 32 partial sums with their weights
+   times 2^(8w) into the final point (``combine_windows``). On a CUDA
+   device X2 (``ops/msm_kernel.window_combine``) does it on the card, queued
+   with the bucket stage, and the host reads back one affine point a
+   commitment; on the CPU the host does it (``_combine_windows_host``: the
+   native Pippenger over the small points).
 
-The same torch code runs on any device; only K3 dispatches on it (plain
-scan on CPU, the CUDA kernel on a GPU), so the CPU tests exercise the
-card's algorithm. Under a rank mesh (``parallel/auto``) steps 1-4 run on
-each rank's block of the lanes and the partials are summed over ranks
-before step 5 (``parallel/msm_sharded``).
+Steps 1-4 are the same torch code on any device; only K3 dispatches on it
+(plain scan on CPU, the CUDA kernel on a GPU), so the CPU tests exercise
+the card's bucket stage. Step 5 follows the partials' device, which the
+code can observe; the two routes share only the formula, and the tests
+hold X2's block code to the host's fold. Under a rank mesh
+(``parallel/auto``) steps 1-4 run on each rank's block of the lanes and the
+partials are summed over ranks before step 5 (``parallel/msm_sharded``).
 """
 
 from __future__ import annotations
@@ -275,11 +281,14 @@ def _combine_windows_host(acc) -> list:
     """(16, B, NWIN, 2·SPLIT) Jacobian partial sums -> B host affine points.
 
     point_b = sum_{w, i} PARTIAL_WEIGHTS[i]·2^(8w)·S[b, w, i], by the native
-    host Pippenger over each row's small points (X2's host side)."""
+    host Pippenger over each row's small points. X2's host route, for CPU
+    tensors."""
     with TR.span("msm_combine"):
         q = F.FQ_MOD
         ax, ay, az = (FT.from_mont_ints(c.reshape(FT.NLIMBS, -1), FQ) for c in acc)
         nb = acc[0].shape[1]
+        if TR.on:
+            TR.count("msm_combine", "host", commitments=nb)
         out = []
         i = 0
         for _ in range(nb):
@@ -294,6 +303,36 @@ def _combine_windows_host(acc) -> list:
                     i += 1
             out.append(native.g1_msm(pts, scal) if pts else None)
         return out
+
+
+def _affine_from_rows(rows: torch.Tensor) -> list:
+    """X2's (B, 17) int64 rows (X words, Y words, 1 where finite) -> B host
+    affine points, None at infinity: the read-back and int conversion left
+    to the host."""
+    with TR.span("msm_combine"):
+        host = FT.as_numpy(rows)
+        words = np.ascontiguousarray(host[:, :16]).astype("<u4").tobytes()
+        return [(int.from_bytes(words[64 * b : 64 * b + 32], "little"),
+                 int.from_bytes(words[64 * b + 32 : 64 * b + 64], "little"))
+                if finite else None
+                for b, finite in enumerate(host[:, 16])]
+
+
+def _start_combine(acc):
+    """Start the window combine of a partial triple (step 5) and return a
+    ``finish()`` giving the B host affine points. On a CUDA device X2 is
+    queued now and ``finish()`` reads back its rows; on the CPU the host
+    fold runs in ``finish()``."""
+    if acc[0].device.type != "cuda":
+        return lambda: _combine_windows_host(acc)
+    rows = MK.window_combine(*acc)
+    return lambda: _affine_from_rows(rows)
+
+
+def combine_windows(acc) -> list:
+    """(16, B, NWIN, 2·SPLIT) Jacobian partial sums -> B host affine points
+    (None for infinity), on the partials' device (step 5)."""
+    return _start_combine(acc)()
 
 
 # ---------------------------------------------------------------------------
@@ -361,15 +400,16 @@ def _commit_dev(xs, ys, valid, scal_mont):
 
 
 def msm_commit_dev_async(points, scal_mont: torch.Tensor):
-    """Dispatch the bucket stage for B commitments of device-resident
-    Montgomery scalar columns (16, B, m <= len(points)) and return a
-    ``finish()`` that materialises the B host affine points (or None).
+    """Dispatch the bucket stage and the window combine for B commitments
+    of device-resident Montgomery scalar columns (16, B, m <= len(points))
+    and return a ``finish()`` that materialises the B host affine points
+    (or None).
 
-    On a GPU the launches are queued on the current stream and only
-    ``finish()`` waits, so the caller can enqueue more work first. Under
-    an active mesh (``_active_mesh``) each rank runs its block of the lanes
-    (``parallel/msm_sharded``) and the partials are gathered here, at
-    dispatch, in the same order on every rank."""
+    On a GPU the launches (X2's among them) are queued on the current
+    stream and only ``finish()`` waits, so the caller can enqueue more work
+    first. Under an active mesh (``_active_mesh``) each rank runs its block
+    of the lanes (``parallel/msm_sharded``) and the partials are gathered
+    here, at dispatch, in the same order on every rank."""
     if scal_mont.dim() != 3 or scal_mont.shape[2] > len(points):
         raise ValueError(f"scal_mont must be (16, B, m <= {len(points)}), got {tuple(scal_mont.shape)}")
     b = int(scal_mont.shape[1])
@@ -383,14 +423,11 @@ def msm_commit_dev_async(points, scal_mont: torch.Tensor):
             from ..parallel import msm_sharded
 
             commit = functools.partial(msm_sharded.commit_sharded_device, mesh)
-        accs = [commit(xs, ys, valid, scal_mont[:, lo : lo + chunk_b])
-                for lo in range(0, b, chunk_b)]
+        finishes = [_start_combine(commit(xs, ys, valid, scal_mont[:, lo : lo + chunk_b]))
+                    for lo in range(0, b, chunk_b)]
 
     def finish():
-        out = []
-        for acc in accs:
-            out.extend(_combine_windows_host(acc))
-        return out
+        return [p for f in finishes for p in f()]
 
     return finish
 

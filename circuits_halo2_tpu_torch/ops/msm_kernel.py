@@ -1,5 +1,5 @@
 """K3: the Pippenger bucket scan -- hand-written CUDA kernel and its plain
-torch version.
+torch version; and X2, the window combine that follows it on the card.
 
 Counterpart of ``circuits_halo2_tpu/ops/msm_pallas.py::_scan_pallas`` (and
 of phase 1 of ``ops/msm.py::_segmented_sum_parts``). Points are sorted by
@@ -12,6 +12,13 @@ every step.
 Montgomery Fq coordinates, ``(*batch, n)`` validity and digits, and returns
 three ``(16, *batch, n)`` tensors. A CPU tensor runs ``segmented_scan_ref``;
 a CUDA tensor launches ``csrc/msm_scan.cu`` (or raises).
+
+``window_combine(x, y, z)`` (X2, ``csrc/msm_combine.cu``) takes the bucket
+stage's ``(16, B, NWIN, 2·SPLIT)`` Jacobian window partials on a CUDA
+device and returns each commitment's affine point as a ``(B, 17)`` int64
+row: X's and Y's eight 32-bit words, plain and canonical, and 1 (17 zeros
+at infinity). It has no plain version here: a CPU tensor takes the host
+fold, ``ops/msm._combine_windows_host``.
 """
 
 from __future__ import annotations
@@ -86,3 +93,37 @@ def segmented_scan(px, py, pvalid, seg, L: int):
 
 
 segmented_scan.launches = 0
+
+
+X2_PARTIALS = (32, 32)  # ops/msm.py's NWIN windows x 2·SPLIT partials
+X2_OUT = 17  # int64s a commitment: X's words, Y's words, 1 where finite
+
+
+def window_combine(x, y, z) -> torch.Tensor:
+    """X2: fold each commitment's window partials into its affine point on
+    the card; see the module docstring."""
+    for name, a in (("x", x), ("y", y), ("z", z)):
+        if (a.dtype != FT.DTYPE or a.dim() != 4 or a.shape[0] != FT.NLIMBS
+                or tuple(a.shape[2:]) != X2_PARTIALS):
+            raise ValueError(f"window_combine: {name} must be (16, B, 32, 32) int64, "
+                             f"got {a.dtype} {tuple(a.shape)}")
+    if y.shape != x.shape or z.shape != x.shape or y.device != x.device or z.device != x.device:
+        raise ValueError("window_combine: mismatched shapes or devices")
+    if x.device.type != "cuda":
+        raise ValueError(f"window_combine: the kernel needs a CUDA tensor, got {x.device}")
+    lib = build.cuda_library()
+    b = int(x.shape[1])
+    x, y, z = x.contiguous(), y.contiguous(), z.contiguous()
+    out = torch.empty((b, X2_OUT), dtype=torch.int64, device=x.device)
+    if b:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        window_combine.launches += 1
+        if TR.on:
+            TR.count("kernel", "X2", launches=1, commitments=b)
+        build.check(lib.msm_combine_cuda(x.data_ptr(), y.data_ptr(), z.data_ptr(), out.data_ptr(),
+                                         b, FT._r3_words(FT.FQ.mod_int), stream),
+                    "msm_combine_cuda")
+    return out
+
+
+window_combine.launches = 0

@@ -6,11 +6,11 @@ rank. Each rank runs the single-device bucket stage
 (``ops/msm._pippenger_windows``, K3 on the card) on its block of the cached
 bases -- views, no new upload -- and the ``(16, B, NWIN, 2·SPLIT)``
 Jacobian window partials are all-gathered and summed over ranks with
-``jac_add``. The host window combine (``ops/msm._combine_windows_host``)
-then runs once, as on one device. The JAX package Horner-folds each
-shard's windows on the device before its gather; the port stops at the
-window partials because its single-device path does, and the point is the
-same.
+``jac_add``. The window combine (``ops/msm.combine_windows``: X2 on a CUDA
+rank, the host's fold on a CPU one) then runs once on every rank, as on one
+device. The JAX package Horner-folds each shard's windows on the device
+before its gather; the port gathers the window partials, the input of its
+single-device combine, and the point is the same.
 """
 
 from __future__ import annotations
@@ -75,4 +75,4 @@ def msm_sharded(mesh: Mesh, points, scalar_rows) -> list:
     flat = [v for r in scalar_rows for v in list(r) + [0] * (m - len(r))]
     scal = torch.as_tensor(FT.to_mont_limbs(flat).reshape(FT.NLIMBS, len(scalar_rows), m),
                            device=mesh.device)
-    return M._combine_windows_host(commit_sharded_device(mesh, xs, ys, valid, scal))
+    return M.combine_windows(commit_sharded_device(mesh, xs, ys, valid, scal))

@@ -77,8 +77,9 @@ PHASES = ["phase1 synth+advice commits", "phase2 lookup permute+commit",
 def test_traced_batch_has_its_leaf_spans_inside_the_phases(traced_keccak_batch):
     """With tracing on, the proof bytes stay the JAX package's; every span
     but the Domain's first conversions lies inside one of the call's
-    phases, the per-user spans carry users 0 and 1, and each of phases 1-4
-    holds its layers' leaf spans."""
+    phases, the per-user spans carry users 0 and 1, each of phases 1-4
+    holds its layers' leaf spans, and the only count is the window
+    combine's host route."""
     proofs, (spans, counts) = traced_keccak_batch
     assert proofs[0].hex() == FIX["keccak_vk_digest_proof"]
     roots = [s for s in spans if s.parent is None]
@@ -108,7 +109,9 @@ def test_traced_batch_has_its_leaf_spans_inside_the_phases(traced_keccak_batch):
     assert {"to_limbs", "blinding_draws", "msm_combine", "transcript"} <= leaves[PHASES[2]]
     assert {"to_limbs", "msm_combine", "transcript"} <= leaves[PHASES[3]]
     assert all("dispatch" in inside[p] for p in PHASES)
-    assert counts == {}  # no kernel and no copy on the CPU
+    # no kernel and no copy on the CPU: the window combines take the host
+    # route, 16 commitments a proof of the two users
+    assert counts == {("msm_combine", "host"): {"commitments": 32}}
 
 
 def test_batch_user1_equals_single_prove(setup, keccak_batch):

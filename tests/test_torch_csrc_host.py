@@ -15,7 +15,8 @@ the plain torch versions; X4's butterflies, driven thread by thread, also
 downsize the hermez-raw-11 ceremony file to the JAX package's bases. X0's
 per-thread functions (the divstep inversion among them) run for every
 element, and X1's block phases (``csrc/ntt.cu``) for every thread of every
-block of a launch, a cluster's blocks on buffers of their own. Exact. The
+block of a launch, a cluster's blocks on buffers of their own; X2's phases
+(``csrc/msm_combine.cu``) likewise, against the host's window fold. Exact. The
 launches themselves are checked on the card (``chip_smoke.py``, ``-m cuda``
 tests)."""
 
@@ -31,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from circuits_halo2_tpu import native as JNAT
 from circuits_halo2_tpu.ops import curve as C
 from circuits_halo2_tpu.ops import field as F
 from circuits_halo2_tpu.ops import field_jax as FJ
@@ -67,6 +69,7 @@ HARNESS = r"""
 #include "ec_fft.cu"
 #include "field_ops.cu"
 #include "ntt.cu"
+#include "msm_combine.cu"
 
 template <class T> static std::vector<T> take(size_t n) {
     std::vector<T> v(n);
@@ -340,6 +343,22 @@ int main(int argc, char** argv) {
         const int launches = x1::plan(x1::ilog2(n), L, one_pass, target, a, ps);
         for (int i = 0; i < launches; ++i) x1_blocks(a, ps[i]);
         out[16 * L * n] = launches + 16 * ps[0].lc;  // the launches and the first's cluster
+        fwrite(out.data(), 8, out.size(), stdout);
+    } else if (mode == "x2") {  // X2: n commitments' (16, n, 32, 32) limbs of X, Y, Z, then R^3
+        const size_t len = (size_t)16 * n * x2::NWIN * x2::PARTS;
+        auto x = take<int64_t>(len), y = take<int64_t>(len), z = take<int64_t>(len);
+        auto r3 = take<uint32_t>(8);
+        std::vector<int64_t> out((size_t)x2::OUT * n);
+        x2::Args a{x.data(), y.data(), z.data(), out.data(), n, {}};
+        memcpy(a.r3.w, r3.data(), 32);
+        std::vector<uint32_t> sm(x2::SMEM_WORDS);
+        for (long blk = 0; blk < n; ++blk) {  // each phase for every thread, as the barriers order them
+            std::fill(sm.begin(), sm.end(), 0xa5a5a5a5u);
+            for (int j = 0; j < x2::THREADS; ++j) x2::window_sum(sm.data(), a, blk, j);
+            for (int level = 0; level < x2::LEVELS; ++level)
+                for (int j = 0; j < x2::THREADS; ++j) x2::fold(sm.data(), level, j);
+            x2::finish(sm.data(), a, blk);
+        }
         fwrite(out.data(), 8, out.size(), stdout);
     } else {  // scan: n points, L steps per lane
         auto seg = take<int64_t>(n);
@@ -1064,3 +1083,56 @@ def test_x1_block_code_fused_domain_transforms(harness, method):
     assert torch.equal(got, plain)
     assert torch.equal(got, getattr(dom, method)(a))
     assert np.array_equal(np.asarray(want).astype(np.int64), got.numpy())
+
+
+# ---------------------------------------------------------------------------
+# X2 (csrc/msm_combine.cu)
+# ---------------------------------------------------------------------------
+
+def _x2_grids():
+    """Three (32 windows x 32 partials) grids of affine points (None at
+    infinity): all at infinity; the edge cases; every partial a distinct
+    point, d = 15 and window 31 included (the largest weights)."""
+    rng = random.Random(19)
+    r = F.FR_MOD
+    ks = [rng.randrange(1, r) for _ in range(2 * 32 * 32)]
+    a, c = rng.randrange(1, r), rng.randrange(1, r)
+    # P and -P/16 (the fold's P + (-P)), Q and 16 Q (the fold's doubling)
+    ks += [a, -a * pow(16, -1, r) % r, c, 16 * c % r]
+    pts = native.g1_fixed_base_muls(C.G1_GEN, ks)
+    full, edge = pts[:1024], pts[1024:2048]
+    p_a, p_cancel, q, q16 = pts[2048:]
+    edge = [edge[32 * w : 32 * w + 32] for w in range(32)]
+    edge[0] = [None] * 32  # window 0: T_0 + 16 T_1 = P - P at the fold's first level
+    edge[0][17], edge[0][1] = p_a, p_cancel
+    edge[1] = [edge[1][3]] * 32  # equal partials: the running sum doubles
+    p = edge[2][5]
+    edge[2][31], edge[2][30], edge[2][15], edge[2][14] = p, TC.g1_neg(p), p, TC.g1_neg(p)
+    edge[3] = [None] * 32  # both nibble windows zero
+    edge[4][1:16] = [None] * 15  # the row sums' nibble window zero
+    edge[5] = [None] * 32  # T_10 = 16 Q, T_11 = Q: the fold doubles
+    edge[5][17], edge[5][1] = q16, q
+    return [[None] * 1024, sum(edge, []), full]
+
+
+def test_x2_block_code_matches_host_fold(harness):
+    """X2's phases, thread by thread and block by block in the kernel's
+    order, on three commitments' partials at random Z (a partial at
+    infinity with random X and Y; the weight-0 partials filled): the affine
+    points equal the JAX package's native MSM over the grid's points and
+    weights, and ``ops/msm._combine_windows_host``'s (the card tests'
+    reference), and the all-infinity grid gives None."""
+    grids = _x2_grids()
+    rng = random.Random(23)
+    jac = [_jacobian(p, rng.randrange(1, Q)) for g in grids for p in g]
+    acc = tuple(torch.as_tensor(FT.to_mont_limbs([j[c] for j in jac], FT.FQ))
+                .reshape(16, len(grids), 32, 32) for c in range(3))
+    payload = b"".join(t.numpy().tobytes() for t in acc) + _word_rows(
+        [(1 << 768) % Q], 8).tobytes()
+    rows = _run(harness, "x2", 0, len(grids), payload, np.int64).reshape(len(grids), 17)
+    got = TM._affine_from_rows(torch.as_tensor(rows))
+    weights = [wt << (8 * w) for w in range(32) for wt in TM.PARTIAL_WEIGHTS]
+    want = [JNAT.g1_msm(*zip(*[(p, k % F.FR_MOD) for p, k in zip(g, weights) if p and k]))
+            if any(g) else None for g in grids]
+    assert got == want == TM._combine_windows_host(acc)
+    assert got[0] is None and got[1] is not None and got[2] is not None

@@ -155,9 +155,42 @@ def test_msm_commit_dev_matches_native(dev):
     rows[0][0], rows[0][1] = 0, FR_MOD - 1
     rows[0][6] = rows[0][7]
     rows[1] = [0] * n
+    rows[2][: n // 2] = [FR_MOD - 1] * (n // 2)
     want = [native.g1_msm(points, r) for r in rows]
+    before = MK.window_combine.launches
     assert TM.msm_auto_batch(points, rows, dev) == want
+    assert MK.window_combine.launches == before + 1  # one chunk: X2 folds all three
     assert TM.msm_auto_batch(points, rows, "cpu") == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 16, 48])
+def test_x2_matches_host_fold(dev, batch):
+    """X2 on K3's partials at k=13 (chunks of 16 commitments, concatenated
+    for 48) gives the host fold's points, edge scalars (0, p - 1, P + (-P),
+    a None base) and an all-zero column included; one launch a call."""
+    rng = np.random.default_rng(batch)
+    n = 1 << 13
+    points = native.g1_fixed_base_muls(G1_GEN, _fr(rng, n))
+    points[3] = None
+    points[7] = (points[6][0], FQ_MOD - points[6][1])
+    rows = [_fr(rng, n) for _ in range(batch)]
+    rows[0][0], rows[0][1] = 0, FR_MOD - 1
+    rows[0][6] = rows[0][7]
+    if batch > 1:
+        rows[1] = [0] * n
+    scal = torch.as_tensor(FT.to_mont_limbs([v for r in rows for v in r]).reshape(16, batch, n),
+                           device=dev)
+    xs, ys, valid = TM.precompute_bases(points, dev)
+    parts = [TM._commit_dev(xs, ys, valid, scal[:, lo : lo + 16]) for lo in range(0, batch, 16)]
+    acc = tuple(torch.cat([p[c] for p in parts], dim=1) for c in range(3))
+    before = MK.window_combine.launches
+    got = TM._affine_from_rows(MK.window_combine(*acc))
+    assert MK.window_combine.launches == before + 1
+    assert got == TM._combine_windows_host(tuple(c.cpu() for c in acc))
+    if batch > 1:
+        assert got[1] is None
+    assert got[:3] == [native.g1_msm(points, r) for r in rows[:3]]
 
 
 @pytest.mark.cuda

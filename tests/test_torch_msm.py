@@ -19,6 +19,8 @@ from circuits_halo2_tpu.ops import msm as JM
 from circuits_halo2_tpu_torch import native
 from circuits_halo2_tpu_torch.ops import field_torch as FT
 from circuits_halo2_tpu_torch.ops import msm as TM
+from circuits_halo2_tpu_torch.ops import msm_kernel as MK
+from circuits_halo2_tpu_torch.utils import tracing as TR
 
 torch.set_num_threads(2)
 
@@ -92,8 +94,12 @@ def edge_msm():
 
 
 def test_msm_commit_dev_matches_native(edge_msm):
+    """The bucket stage and the window combine, at 2^11 with the edge rows,
+    equal the JAX package's ``msm_auto_batch`` and the port's native MSM."""
     points, rows = edge_msm
-    assert TM.msm_auto_batch(points, rows, "cpu") == [native.g1_msm(points, r) for r in rows]
+    got = TM.msm_auto_batch(points, rows, "cpu")
+    assert got == JM.msm_auto_batch(points, rows)
+    assert got == [native.g1_msm(points, r) for r in rows]
 
 
 def test_msm_small_cases_match_reference():
@@ -103,6 +109,45 @@ def test_msm_small_cases_match_reference():
              ([g, g], [1, F.FR_MOD - 1], None), ([g, C.g1_neg(g)], [7, 7], None)]
     for pts, scal, want in cases:
         assert TM.msm_auto(pts, scal, "cpu") == want
+
+
+def test_cpu_combine_takes_the_host_route():
+    """CPU partials take the host fold, counted on the ``host`` route with
+    its ``msm_combine`` span, and give the JAX package's points; X2 does
+    not launch."""
+    g = C.G1_GEN
+    before = MK.window_combine.launches
+    TR.drain()
+    TR.enable()
+    try:
+        got = TM.msm_auto_batch([g, C.g1_neg(g)], [[3, 1], [5, 5]], "cpu")
+    finally:
+        TR.disable()
+    spans, counts = TR.drain()
+    assert got == [C.g1_mul(g, 2), None] == JM.msm_auto_batch([g, C.g1_neg(g)], [[3, 1], [5, 5]])
+    assert counts == {("msm_combine", "host"): {"commitments": 2}}
+    assert [s.name for s in spans].count("msm_combine") == 1
+    assert MK.window_combine.launches == before
+
+
+def _partials(shape=(16, 2, 32, 32), dtype=torch.int64):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("case", ["cpu", "windows", "dtype", "mismatch"])
+def test_window_combine_refuses_what_it_does_not_take(case):
+    """X2's wrapper raises before any launch on what the kernel does not
+    take: a CPU tensor (the host fold's), another partial grid, another
+    dtype, coordinates of different shapes."""
+    x = y = z = _partials()
+    if case == "windows":
+        x = y = z = _partials((16, 2, 32, 16))
+    elif case == "dtype":
+        x = _partials(dtype=torch.int32)
+    elif case == "mismatch":
+        z = _partials((16, 3, 32, 32))
+    with pytest.raises(ValueError, match="window_combine"):
+        MK.window_combine(x, y, z)
 
 
 def test_digits_match_jax():
