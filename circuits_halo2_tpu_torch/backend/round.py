@@ -54,6 +54,17 @@ class Snapshot:
         calldata = pipeline.gen_proof_solidity_calldata(self.trusted_setup, circuit)
         return MstInclusionProof(calldata.proof, calldata.public_inputs)
 
+    def generate_proofs_of_inclusion(self, user_indices: list[int]) -> list[MstInclusionProof]:
+        """``generate_proof_of_inclusion`` for many users in one batched,
+        self-checked call (``pipeline.gen_proofs_solidity_calldata``): the
+        operator's bulk path; each user's calldata is the bytes
+        ``generate_proof_of_inclusion`` exports for that user."""
+        levels, n_currencies, n_bytes = self.shape
+        circuits = [MstInclusionCircuit.init(levels, n_currencies, n_bytes,
+                                             self.mst.generate_proof(i)) for i in user_indices]
+        return [MstInclusionProof(c.proof, c.public_inputs)
+                for c in pipeline.gen_proofs_solidity_calldata(self.trusted_setup, circuits)]
+
 
 class Round:
     def __init__(

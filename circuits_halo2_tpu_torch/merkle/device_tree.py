@@ -1,14 +1,17 @@
 """Device-resident Merkle sum tree build -- the large-scale witness path of
 ``circuits_halo2_tpu/merkle/device_tree.py``.
 
-- usernames (keccak digests) and u64 balances become 16-bit limb tensors by
-  vectorised numpy byte views (no per-element Python);
+- usernames (keccak digests) and balances become 16-bit limb tensors by
+  vectorised numpy byte views (no per-element Python): u64 balances, or
+  balances wider than 64 bits as little-endian uint64 words (an amount in
+  wei above 18.4 ETH needs two);
 - balance sums stay RAW exact integers across levels (< 2^84 for 2^20
-  entries x u64), added limb-wise with one carry pass; they are converted
-  to Montgomery form only where they enter a hash preimage. Montgomery-
-  resident sums would be full-width field elements, and the reference's
-  redundant-limb hash kernel went out of its envelope on them from level 6
-  up; exact raw sums keep every value small and every level exact;
+  entries x u64, < 2^(64W + 20) for 2^20 entries of W words), added limb-wise
+  with one carry pass; they are converted to Montgomery form only where
+  they enter a hash preimage. Montgomery-resident sums would be full-width
+  field elements, and the reference's redundant-limb hash kernel went out
+  of its envelope on them from level 6 up; exact raw sums keep every value
+  small and every level exact;
 - every level is one K1 launch (``ops/poseidon_kernel.hash_batch``);
 - only the root and queried nodes come back to the host.
 
@@ -32,10 +35,14 @@ P = F.FR_MOD
 
 
 def u64_to_limbs16(values: np.ndarray) -> np.ndarray:
-    """(N,) uint64 -> (16, N) int64 limbs (the top 12 are zero)."""
-    le = np.ascontiguousarray(values.astype("<u8"))
-    out = np.zeros((FT.NLIMBS, len(le)), dtype=np.int64)
-    out[:4] = le.view("<u2").reshape(len(le), 4).T
+    """(N,) uint64, or (N, W) little-endian uint64 words of one value each
+    (W <= 4) -> (16, N) int64 limbs (the top 16 - 4W are zero)."""
+    le = np.ascontiguousarray(values.astype("<u8")).reshape(len(values), -1)
+    n, w = le.shape
+    if w > FT.NLIMBS // 4:
+        raise ValueError(f"{w} words exceed a 256-bit value")
+    out = np.zeros((FT.NLIMBS, n), dtype=np.int64)
+    out[:4 * w] = le.view("<u2").reshape(n, 4 * w).T
     return out
 
 
@@ -110,8 +117,9 @@ class DeviceMst:
 
 def build_device_tree(hashed_usernames: np.ndarray, balances: np.ndarray, device) -> DeviceMst:
     """hashed_usernames: (N, 32) uint8 keccak digests (or zeros); balances:
-    (N, C) uint64. N must be a power of two."""
-    n, ncur = balances.shape
+    (N, C) uint64, or (N, C, W) little-endian uint64 words of balances wider
+    than 64 bits (W <= 4, every sum below 2^256). N must be a power of two."""
+    n, ncur = balances.shape[:2]
     depth = (n - 1).bit_length()
     if n != 1 << depth:
         raise ValueError("entry count must be a power of two")

@@ -13,9 +13,13 @@ implemented generically over the compiled ConstraintSystem.
 
 from __future__ import annotations
 
+import secrets
+
+from .. import native
 from ..ops import curve as C
 from ..ops import field as F
 from ..ops import pairing as PAIR
+from ..utils import tracing as TR
 from ..utils.srs import ParamsKZG
 from ..utils.transcript import KeccakTranscript
 from .cs import ConstraintSystem
@@ -108,47 +112,48 @@ def verify(
     chunk = perm_chunk_len(cs)
     num_h = cs.degree() - 1
 
-    t = transcript_cls(proof)
-    t.common_scalar(vk_digest if vk_digest is not None else vk.transcript_repr)
-    for col in instances:
-        for v in col:
-            t.common_scalar(v)
+    with TR.span("transcript"):
+        t = transcript_cls(proof)
+        t.common_scalar(vk_digest if vk_digest is not None else vk.transcript_repr)
+        for col in instances:
+            for v in col:
+                t.common_scalar(v)
 
-    advice_comms = [t.read_point() for _ in range(cs.num_advice)]
-    theta = t.squeeze_challenge()
-    lookup_comms = []
-    for _ in cs.lookups:
-        a_prime = t.read_point()
-        s_prime = t.read_point()
-        lookup_comms.append((a_prime, s_prime))
-    beta = t.squeeze_challenge()
-    gamma = t.squeeze_challenge()
-    perm_z_comms = [t.read_point() for _ in range(nperm)]
-    lookup_z_comms = [t.read_point() for _ in cs.lookups]
-    random_comm = t.read_point()
-    y = t.squeeze_challenge()
-    h_comms = [t.read_point() for _ in range(num_h)]
-    x = t.squeeze_challenge()
+        advice_comms = [t.read_point() for _ in range(cs.num_advice)]
+        theta = t.squeeze_challenge()
+        lookup_comms = []
+        for _ in cs.lookups:
+            a_prime = t.read_point()
+            s_prime = t.read_point()
+            lookup_comms.append((a_prime, s_prime))
+        beta = t.squeeze_challenge()
+        gamma = t.squeeze_challenge()
+        perm_z_comms = [t.read_point() for _ in range(nperm)]
+        lookup_z_comms = [t.read_point() for _ in cs.lookups]
+        random_comm = t.read_point()
+        y = t.squeeze_challenge()
+        h_comms = [t.read_point() for _ in range(num_h)]
+        x = t.squeeze_challenge()
 
-    advice_evals = [t.read_scalar() for _ in cs.advice_queries]
-    fixed_evals = [t.read_scalar() for _ in cs.fixed_queries]
-    random_eval = t.read_scalar()
-    sigma_evals = [t.read_scalar() for _ in cs.permutation_columns]
-    perm_z_evals = []  # per set: (z_x, z_wx, z_last or None)
-    for s in range(nperm):
-        z_x = t.read_scalar()
-        z_wx = t.read_scalar()
-        z_last = t.read_scalar() if s < nperm - 1 else None
-        perm_z_evals.append((z_x, z_wx, z_last))
-    lookup_evals = []  # per lookup: (z_x, z_wx, a_x, a_prev, s_x)
-    for _ in cs.lookups:
-        lookup_evals.append(tuple(t.read_scalar() for _ in range(5)))
+        advice_evals = [t.read_scalar() for _ in cs.advice_queries]
+        fixed_evals = [t.read_scalar() for _ in cs.fixed_queries]
+        random_eval = t.read_scalar()
+        sigma_evals = [t.read_scalar() for _ in cs.permutation_columns]
+        perm_z_evals = []  # per set: (z_x, z_wx, z_last or None)
+        for s in range(nperm):
+            z_x = t.read_scalar()
+            z_wx = t.read_scalar()
+            z_last = t.read_scalar() if s < nperm - 1 else None
+            perm_z_evals.append((z_x, z_wx, z_last))
+        lookup_evals = []  # per lookup: (z_x, z_wx, a_x, a_prev, s_x)
+        for _ in cs.lookups:
+            lookup_evals.append(tuple(t.read_scalar() for _ in range(5)))
 
-    zeta = t.squeeze_challenge()
-    nu = t.squeeze_challenge()
-    w_comm = t.read_point()
-    mu = t.squeeze_challenge()
-    w_prime_comm = t.read_point()
+        zeta = t.squeeze_challenge()
+        nu = t.squeeze_challenge()
+        w_comm = t.read_point()
+        mu = t.squeeze_challenge()
+        w_prime_comm = t.read_point()
 
     # ---- Lagrange evaluations at x ---------------------------------------
     x_n = F.fr_pow(x, n)
@@ -253,13 +258,6 @@ def verify(
         numer = (numer * y + term) % P
     quotient_eval = numer * F.fr_inv((x_n - 1) % P) % P
 
-    # quotient commitment: Horner over pieces with x^n
-    q_comm = None
-    for comm in reversed(h_comms):
-        if q_comm is not None:
-            q_comm = C.g1_mul(q_comm, x_n)
-        q_comm = C.g1_add(q_comm, comm)
-
     # ---- SHPLONK multiopen check -----------------------------------------
     sets = rotation_sets(cs)
 
@@ -279,8 +277,6 @@ def verify(
             return lookup_comms[poly[1]][0]
         if kind == "lookup_s":
             return lookup_comms[poly[1]][1]
-        if kind == "quotient":
-            return q_comm
         if kind == "random":
             return random_comm
         raise KeyError(poly)
@@ -345,25 +341,39 @@ def verify(
                 diff = diff * ((mu - point_of[rot]) % P) % P
         set_data.append({"z_mu": z_mu, "r_mu": r_mu_total, "diff": diff, "polys": polys})
 
+    # the accumulator sum_j nu^j norm_j sum_i zeta^i C_ij - r G - z_mu W + mu W'
+    # as one host Pippenger; the quotient's commitment enters as its pieces,
+    # sum_i x^(n i) H_i
+    points, scalars = [], []
+
+    def term(point, scalar: int) -> None:
+        points.append(point)
+        scalars.append(scalar % P)
+
     diff0_inv = F.fr_inv(set_data[0]["diff"])
-    acc = None
     r_total = 0
     nu_pow = 1
-    for j, sd in enumerate(set_data):
+    for sd in set_data:
         norm = sd["diff"] * diff0_inv % P
-        comm = None
         zeta_pow = 1
         for poly in sd["polys"]:
-            comm = C.g1_add(comm, C.g1_mul(poly_commitment(poly), zeta_pow))
+            scale = nu_pow * norm % P * zeta_pow % P
+            if poly[0] == "quotient":
+                for comm in h_comms:
+                    term(comm, scale)
+                    scale = scale * x_n % P
+            else:
+                term(poly_commitment(poly), scale)
             zeta_pow = zeta_pow * zeta % P
-        acc = C.g1_add(acc, C.g1_mul(comm, nu_pow * norm % P))
         r_total = (r_total + nu_pow * norm % P * sd["r_mu"]) % P
         nu_pow = nu_pow * nu % P
 
-    gen = params.g[0]
-    acc = C.g1_add(acc, C.g1_mul(gen, (-r_total) % P))
-    acc = C.g1_add(acc, C.g1_mul(w_comm, (-set_data[0]["z_mu"]) % P))
-    acc = C.g1_add(acc, C.g1_mul(w_prime_comm, mu))
+    term(params.g[0], -r_total)
+    term(w_comm, -set_data[0]["z_mu"])
+    term(w_prime_comm, mu)
+    acc = native.g1_msm(points, scalars)
+    if TR.on:
+        TR.count("verify", "proofs", n=1)
 
     if defer_pairing:
         # KZG accumulator: the proof is valid iff
@@ -373,7 +383,46 @@ def verify(
         # s·G2) — the verification-compression path for proof chains.
         return True, (acc, w_prime_comm)
 
-    # e(acc, G2) == e(W', s·G2)
-    return PAIR.pairing_check(
-        [(acc, params.g2), (C.g1_neg(w_prime_comm), params.s_g2)]
-    )
+    return pairing_holds(params, acc, w_prime_comm)
+
+
+def pairing_holds(params: ParamsKZG, acc, w_prime) -> bool:
+    """e(acc, G2) == e(W', s·G2): one pairing check."""
+    if TR.on:
+        TR.count("verify", "pairings", n=1)
+    return PAIR.pairing_check([(acc, params.g2), (C.g1_neg(w_prime), params.s_g2)])
+
+
+def verify_batch(
+    params: ParamsKZG,
+    vk: VerifyingKey,
+    instances_list: list[list[list[int]]],
+    proofs: list[bytes],
+    transcript_cls=KeccakTranscript,
+    vk_digest: int | None = None,
+) -> list[int]:
+    """Check U proofs at the cost of U transcript replays and one pairing:
+    the indices of those that fail, in order (none when all hold).
+
+    Each proof's accumulator pair (``verify(..., defer_pairing=True)``) is
+    folded under a fresh random weight r_i into (sum r_i acc_i, sum r_i W'_i),
+    and the fold takes one pairing check; a forged proof passes it with
+    probability about 1/r. Where the fold fails, each pair is checked alone,
+    so the failing proofs are named. A proof that does not parse fails
+    without a pairing."""
+    with TR.span("self_check"):
+        pairs, bad = {}, []
+        for i, (instances, proof) in enumerate(zip(instances_list, proofs, strict=True)):
+            try:
+                pairs[i] = verify(params, vk, instances, proof, transcript_cls, vk_digest,
+                                  defer_pairing=True)[1]
+            except (ValueError, AssertionError, KeyError):
+                bad.append(i)
+        if pairs:
+            weights = [secrets.randbelow(P - 1) + 1 for _ in pairs]
+            accs, w_primes = zip(*pairs.values())
+            if not pairing_holds(params, native.g1_msm(accs, weights),
+                                 native.g1_msm(w_primes, weights)):
+                bad += [i for i, (acc, w) in pairs.items()
+                        if not pairing_holds(params, acc, w)]
+        return sorted(bad)

@@ -14,8 +14,10 @@ from ..models.incremental import compile_chained_circuit, compile_incremental_ci
 from ..models.keygen import ProvingKey, VerifyingKey, keygen
 from ..models.mst_inclusion import MstInclusionCircuit, compile_circuit
 from ..models.prover import BlindingRng, prove
-from ..models.verifier import verify
+from ..models.prover_batch import prove_batch
+from ..models.verifier import verify, verify_batch
 from ..ops.field import FR_MOD
+from . import tracing as TR
 from .srs import ParamsKZG, setup_cached
 from .transcript import Blake2bTranscript, KeccakTranscript
 
@@ -123,6 +125,28 @@ def gen_proof_solidity_calldata(artifacts: SetupArtifacts, circuit: MstInclusion
         raise RuntimeError("proof verification failed before calldata export")
     return ProofSolidityCallData("0x" + proof.hex(),
                                  [field_element_to_solidity_calldata(v) for v in instances[0]])
+
+
+def gen_proofs_solidity_calldata(artifacts: SetupArtifacts, circuits: list[MstInclusionCircuit],
+                                 rngs: list[BlindingRng] | None = None,
+                                 vk_digest: int | None = None) -> list[ProofSolidityCallData]:
+    """``gen_proof_solidity_calldata`` for U circuits at once: one
+    ``prove_batch`` call (Keccak transcript), each proof byte-identical to
+    the one-at-a-time call's with the same rng; every proof checked before
+    any calldata is exported (``verify_batch``: U transcript replays, one
+    pairing), and a failure raises naming the failing circuits' indices."""
+    instances = [c.instances() for c in circuits]
+    proofs = prove_batch(artifacts.params, artifacts.pk, circuits, artifacts.config, instances,
+                         rngs=rngs, transcript_cls=KeccakTranscript, vk_digest=vk_digest,
+                         device=artifacts.device)
+    bad = verify_batch(artifacts.params, artifacts.vk, instances, proofs,
+                       transcript_cls=KeccakTranscript, vk_digest=vk_digest)
+    if bad:
+        raise RuntimeError(f"proofs {bad} failed verification before calldata export")
+    with TR.span("calldata"):
+        return [ProofSolidityCallData("0x" + proof.hex(),
+                                      [field_element_to_solidity_calldata(v) for v in inst[0]])
+                for proof, inst in zip(proofs, instances)]
 
 
 def field_element_to_solidity_calldata(value: int) -> str:

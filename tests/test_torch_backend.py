@@ -217,6 +217,108 @@ def test_summa_solvency_flow_on_the_cpu(flow):
     assert not run_verifier(source, proof, bad)
 
 
+
+BULK_USERS = [5, 0, 9]
+
+
+@pytest.fixture(scope="module")
+def bulk(flow):
+    """Users 5, 0 and 9 of the flow's snapshot in one traced
+    ``Snapshot.generate_proofs_of_inclusion`` call: the proofs, and the
+    call's spans and counts."""
+    from circuits_halo2_tpu_torch.utils import tracing as TR
+
+    TR.drain()
+    TR.enable()
+    try:
+        got = flow[2].snapshot.generate_proofs_of_inclusion(BULK_USERS)
+    finally:
+        TR.disable()
+    return got, *TR.drain()
+
+
+def test_snapshot_proves_users_in_bulk(flow, bulk):
+    """Each user's public inputs are the hex of its circuit's instances; the
+    middle user's calldata (user 0) is the one-at-a-time calldata of the
+    flow, the JAX package's bytes for the same circuit and rng; the others
+    carry proofs of their own."""
+    from circuits_halo2_tpu_torch.models.mst_inclusion import MstInclusionCircuit
+
+    _, data, round_ = flow
+    snapshot = round_.snapshot
+    got = bulk[0]
+    assert got[1].get_proof() == data["proof"] == "0x" + PROOFS["keccak_vk_digest_proof"]
+    assert got[1].get_public_inputs() == data["public_inputs"]
+    for user, one in zip(BULK_USERS, got):
+        want = MstInclusionCircuit.init(*snapshot.shape, snapshot.mst.generate_proof(user))
+        assert one.get_public_inputs() == [hex(v) for v in want.instances()[0]]
+        assert len(one.get_proof()) == len(data["proof"])
+    assert len({one.get_proof() for one in got}) == len(BULK_USERS)
+
+
+def test_bulk_self_check_runs_one_pairing_and_its_spans_nest(bulk):
+    _, spans, counts = bulk
+    assert counts[("verify", "pairings")] == {"n": 1}
+    assert counts[("verify", "proofs")] == {"n": len(BULK_USERS)}
+    by_id = {s.id: s for s in spans}
+    (check,) = [s for s in spans if s.name == "self_check"]
+    replays = [s for s in spans if s.name == "transcript" and s.parent == check.id]
+    assert len(replays) == len(BULK_USERS)
+    (encode,) = [s for s in spans if s.name == "calldata"]
+    assert check.end <= encode.start and encode.parent is None and check.parent is None
+    assert all(by_id.get(s.parent) is not check or s.name == "transcript" for s in spans)
+
+
+@pytest.mark.parametrize("where", ["first commitment", "last evaluation"])
+def test_a_flipped_byte_is_named_and_nothing_exported(flow, bulk, monkeypatch, where):
+    """A point no longer on the curve fails its replay; an evaluation
+    changed in its lowest byte replays and fails the folded pairing, and the
+    check of each proof alone names it."""
+    from circuits_halo2_tpu_torch.utils import pipeline
+    from circuits_halo2_tpu_torch.utils import tracing as TR
+
+    proofs = [bytes.fromhex(one.get_proof()[2:]) for one in bulk[0]]
+    bad = bytearray(proofs[1])
+    bad[31 if where == "first commitment" else len(bad) - 2 * 64 - 1] ^= 1
+    proofs[1] = bytes(bad)
+    monkeypatch.setattr(pipeline, "prove_batch", lambda *args, **kwargs: list(proofs))
+    TR.enable()
+    try:
+        with pytest.raises(RuntimeError, match=r"proofs \[1\] failed verification"):
+            flow[2].snapshot.generate_proofs_of_inclusion(BULK_USERS)
+    finally:
+        TR.disable()
+    spans, counts = TR.drain()
+    assert not [s for s in spans if s.name == "calldata"]
+    assert counts[("verify", "pairings")] == {"n": 1 if where == "first commitment" else 4}
+
+
+def test_deferred_accumulator_equals_the_jax_package(flow, bulk):
+    """``verify(..., defer_pairing=True)`` (the accumulator as one host
+    Pippenger, the quotient's pieces as terms of it) returns the JAX
+    package's pair on each bulk proof, under the JAX package's own
+    constraint system and params."""
+    from circuits_halo2_tpu.models.keygen import VerifyingKey as JaxVerifyingKey
+    from circuits_halo2_tpu.models.mst_inclusion import compile_circuit as jax_compile
+    from circuits_halo2_tpu.models.verifier import verify as jax_verify
+    from circuits_halo2_tpu.utils.srs import ParamsKZG as JaxParams
+    from circuits_halo2_tpu_torch.examples import _common
+    from circuits_halo2_tpu_torch.models.verifier import verify
+
+    art = flow[2].snapshot.trusted_setup
+    vk = art.vk
+    _, jcs, _, _ = jax_compile(*art.circuit_shape, vk.k)
+    jvk = JaxVerifyingKey(vk.k, jcs, list(vk.fixed_commitments), list(vk.permutation_commitments),
+                          [], [], vk.omega, vk.transcript_repr)
+    jparams = JaxParams.read(str(_common.PTAU))
+    for one in bulk[0]:
+        instances = [[int(v, 16) for v in one.get_public_inputs()]]
+        proof = bytes.fromhex(one.get_proof()[2:])
+        ours = verify(art.params, vk, instances, proof, defer_pairing=True)
+        assert ours == jax_verify(jparams, jvk, instances, proof, defer_pairing=True)
+        assert ours[0] is True and ours[1][0] is not None
+
+
 def test_gen_commitment(tmp_path):
     from circuits_halo2_tpu_torch.examples import gen_commitment
 

@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's host-only modules against the
 originals: identical sources where the copy is verbatim (the Solidity
 generator differs only in the header line it writes, the operator's round
-only by its ``device`` keyword, Spartan only by its MSM route), the
+by its ``device`` keyword and its bulk calldata method, Spartan only by its
+MSM route), the
 recursion side's host modules and circom sources, the same code in
 ``csrc/fieldcc.cpp`` (comments aside), and the same outputs on the same
 inputs where the copy was re-pointed to the port's native library (field
@@ -60,10 +61,24 @@ def test_sol_generator_copy_differs_only_in_its_header_line():
 
 
 def test_round_copy_differs_only_by_the_device_keyword():
+    """The port's ``backend/round.py`` is the JAX package's with the
+    ``device`` keyword, and with ``Snapshot.generate_proofs_of_inclusion``,
+    the bulk calldata path, which only the port has."""
     changed = _differing_lines("backend/round.py")
     assert [line.strip() for _, ours in changed for line in ours] == [
         'device="cuda:0",',
         "k, params_path, levels, n_currencies, n_bytes, device=device",
+        "",
+        "def generate_proofs_of_inclusion(self, user_indices: list[int]) -> list[MstInclusionProof]:",
+        '"""``generate_proof_of_inclusion`` for many users in one batched,',
+        "self-checked call (``pipeline.gen_proofs_solidity_calldata``): the",
+        "operator's bulk path; each user's calldata is the bytes",
+        '``generate_proof_of_inclusion`` exports for that user."""',
+        "levels, n_currencies, n_bytes = self.shape",
+        "circuits = [MstInclusionCircuit.init(levels, n_currencies, n_bytes,",
+        "self.mst.generate_proof(i)) for i in user_indices]",
+        "return [MstInclusionProof(c.proof, c.public_inputs)",
+        "for c in pipeline.gen_proofs_solidity_calldata(self.trusted_setup, circuits)]",
         'device="cuda:0",',
         "self.snapshot = Snapshot(",
         "mst, params_path, levels, n_currencies, n_bytes, device=device",

@@ -100,3 +100,70 @@ def test_limb_conversions():
     digests = np.random.default_rng(1).integers(0, 256, size=(5, 32), dtype=np.uint8)
     assert FT.limbs_to_ints(TDT.digests_to_limbs16(digests)) == [
         int.from_bytes(bytes(d), "big") for d in digests]
+
+
+def _words(values, width=2):
+    """Non-negative ints (any shape) -> (..., width) little-endian uint64 words."""
+    flat = np.asarray(values, dtype=object).ravel()
+    return np.array([[(int(v) >> (64 * i)) & ((1 << 64) - 1) for i in range(width)] for v in flat],
+                    dtype=np.uint64).reshape(*np.shape(values), width)
+
+
+def _wei_csv(path: Path) -> Path:
+    """64 users of two currencies, balances floor(2^u) with u uniform on
+    [0, 80) (amounts in wei) and [0, 50); users 0 and 1 hold 2^80 - 1."""
+    rng = np.random.default_rng(6)
+    bals = [[int(2.0 ** u) for u in rng.uniform(0, top, 64)] for top in (80, 50)]
+    bals[0][:2] = [(1 << 80) - 1] * 2
+    rows = [f"user{i},{a},{b}" for i, (a, b) in enumerate(zip(*bals))]
+    path.write_text("username,balance_ETH_ETH,balance_USDT_ETH\n" + "\n".join(rows) + "\n")
+    return path
+
+
+@pytest.mark.parametrize("case", ["entry_16_bigints", "wei-depth6", "entry_16"])
+def test_device_tree_takes_wide_balances(case, tmp_path):
+    """Balances as little-endian uint64 words: entry_16_bigints holds 2^64,
+    the wei snapshot balances up to 2^80 - 1. The root and every user's proof
+    equal the port's host tree and the JAX package's (for entry_16_bigints)
+    or the JAX package's host tree (the wei snapshot). entry_16's balances
+    fit uint64: its (N, C) uint64 columns and their words convert to the
+    same limbs, so the uint64 input builds what it built before (held to the
+    JAX package's levels at depth 7 above)."""
+    csv = _wei_csv(tmp_path / "wei.csv") if case == "wei-depth6" else CSV / f"{case}.csv"
+    ref = JMst.from_csv(str(csv))
+    entries = ref.entries
+    balances = np.array([e.balances for e in entries], dtype=object)
+    if case == "entry_16":
+        narrow = balances.astype(np.uint64)
+        for c in range(narrow.shape[1]):
+            assert np.array_equal(TDT.u64_to_limbs16(narrow[:, c]),
+                                  TDT.u64_to_limbs16(_words(balances[:, c])))
+        assert (ref.root.hash, ref.root.balances) == ROOTS[case]
+        return
+    assert max(balances.ravel()) >= 1 << 64
+    digests = np.stack([np.frombuffer(e.hashed_username.to_bytes(32, "big"), dtype=np.uint8)
+                        for e in entries])
+    tree = TDT.build_device_tree(digests, _words(balances), "cpu")
+    wants = [ref]
+    if case == "entry_16_bigints":
+        wants.append(MerkleSumTree.from_csv(str(csv), "cpu"))
+    for want in wants:
+        assert tree.root() == (want.root.hash, want.root.balances)
+    for u in range(len(entries)):
+        got = tree.generate_proof(u, entries[u])
+        for want in wants:
+            proof = want.generate_proof(u)
+            assert got.sibling_leaf_node_hash_preimage == proof.sibling_leaf_node_hash_preimage
+            assert got.sibling_middle_node_hash_preimages == proof.sibling_middle_node_hash_preimages
+            assert got.path_indices == proof.path_indices
+
+
+def test_wide_limb_conversions():
+    vals = [0, 1, (1 << 64) - 1, 1 << 64, (1 << 112) - 1, 3 << 100]
+    words = _words(vals)
+    assert FT.limbs_to_ints(TDT.u64_to_limbs16(words)) == vals
+    assert np.array_equal(TDT.u64_to_limbs16(words[:3, :1]),
+                          TDT.u64_to_limbs16(np.array(vals[:3], dtype=np.uint64)))
+    assert FT.limbs_to_ints(TDT.u64_to_limbs16(_words([(1 << 256) - 1], 4))) == [(1 << 256) - 1]
+    with pytest.raises(ValueError):
+        TDT.u64_to_limbs16(np.zeros((1, 5), dtype=np.uint64))
