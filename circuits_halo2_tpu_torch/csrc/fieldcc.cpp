@@ -725,4 +725,213 @@ extern "C" int poseidon_hash_batch(const u8* msgs, size_t n, size_t L, u8* out) 
     return 0;
 }
 
-extern "C" int fieldcc_abi_version() { return 5; }
+extern "C" int fieldcc_abi_version() { return 6; }
+// ===========================================================================
+// Port only, from here to the end: the MstInclusion circuit's advice witness
+// ===========================================================================
+// The values models/mst_inclusion.MstInclusionCircuit.synthesize assigns to
+// its advice columns, in the order it assigns them, for U users at once,
+// scattered through a plan of where each lands (models/witness_plan.py: the
+// layouter's column * n + row of the i-th advice cell, fixed by the key) into
+// the prover's (16, U, ncols, n) Montgomery 16-bit limb layout, int64. Rows
+// the plan does not name stay as the caller left them (zero); rows usable..n
+// of every column take the caller's blinding scalars.
+//
+// One user's inputs, canonical LE scalars, in this order: username,
+// balances[C], path bits[levels], sibling leaf preimage[C + 1] (username,
+// balances), sibling middle preimages[(levels - 1) * (C + 2)] (balances,
+// left hash, right hash).
+
+namespace witness {
+
+struct Cells {
+    std::vector<Fp4> v;
+    void put(const u64 x[4]) { Fp4 f; memcpy(f.v, x, 32); v.push_back(f); }
+};
+
+static void mds(u64 st[2][4]) {
+    u64 n0[4], n1[4], t[4];
+    FrM::mul(n0, POS_MDS[0][0], st[0]); FrM::mul(t, POS_MDS[0][1], st[1]); FrM::add(n0, n0, t);
+    FrM::mul(n1, POS_MDS[1][0], st[0]); FrM::mul(t, POS_MDS[1][1], st[1]); FrM::add(n1, n1, t);
+    memcpy(st[0], n0, 32); memcpy(st[1], n1, 32);
+}
+
+static void full_round(Cells& c, u64 st[2][4], int r) {
+    for (int i = 0; i < 2; ++i) { FrM::add(st[i], st[i], POS_RC[r][i]); sbox(st[i]); }
+    mds(st);
+    c.put(st[0]); c.put(st[1]);
+}
+
+// Pow5Chip.permute's region: the state copied in, 4 full rounds, 28 rows of
+// two partial rounds (the first S-box output in partial_sbox, then the
+// state), 4 full rounds.
+static void permute(Cells& c, u64 st[2][4]) {
+    c.put(st[0]); c.put(st[1]);
+    int r = 0;
+    for (int k = 0; k < 4; ++k, ++r) full_round(c, st, r);
+    for (int k = 0; k < 28; ++k, r += 2) {
+        for (int i = 0; i < 2; ++i) FrM::add(st[i], st[i], POS_RC[r][i]);
+        sbox(st[0]);
+        c.put(st[0]);
+        mds(st);
+        for (int i = 0; i < 2; ++i) FrM::add(st[i], st[i], POS_RC[r + 1][i]);
+        sbox(st[0]);
+        mds(st);
+        c.put(st[0]); c.put(st[1]);
+    }
+    for (int k = 0; k < 4; ++k, ++r) full_round(c, st, r);
+}
+
+// Pow5Chip.hash: the ConstantLength<L> initial state, then per word the
+// add-input region (state and word copied in, the sum and the capacity) and
+// the permutation. out = state[0].
+static void hash(Cells& c, const Fp4* words, size_t L, u64 out[4]) {
+    u64 st[2][4];
+    memset(st[0], 0, 32);
+    u64 cap[4] = {0, (u64)L, 0, 0};
+    FrM::mul(st[1], cap, FR_R2);
+    c.put(st[0]); c.put(st[1]);
+    for (size_t i = 0; i < L; ++i) {
+        c.put(st[0]); c.put(st[1]); c.put(words[i].v);
+        FrM::add(st[0], st[0], words[i].v);
+        c.put(st[0]); c.put(st[1]);
+        permute(c, st);
+    }
+    memcpy(out, st[0], 32);
+}
+
+// RangeCheckChip.assign: z0 = v copied in, then z_{i+1} = (z_i - byte_i) / 256
+// over the little-endian bytes of v's canonical value.
+static void range_check(Cells& c, const u64 v[4], int nbytes, const u64 inv256[4]) {
+    const u64 one[4] = {1, 0, 0, 0};
+    u64 canon[4], z[4];
+    FrM::mul(canon, v, one);
+    memcpy(z, v, 32);
+    c.put(z);
+    for (int i = 0; i < nbytes; ++i) {
+        u64 b[4] = {i < 32 ? (canon[i / 8] >> (8 * (i % 8))) & 0xFF : 0, 0, 0, 0};
+        FrM::mul(b, b, FR_R2);
+        FrM::sub(z, z, b);
+        FrM::mul(z, z, inv256);
+        c.put(z);
+    }
+}
+
+// MstInclusionCircuit.synthesize's advice cells for one user; `in` holds its
+// inputs in Montgomery form.
+static void user_cells(Cells& c, const Fp4* in, int levels, int C, int nbytes,
+                       const u64 inv256[4]) {
+    const Fp4* username = in;
+    const Fp4* bal = in + 1;
+    const Fp4* path = bal + C;
+    const Fp4* leaf = path + levels;
+    const Fp4* mid = leaf + C + 1;
+    std::vector<Fp4> cur(bal, bal + C), sib(C), words(C + 2);
+    c.put(username->v);
+    for (int j = 0; j < C; ++j) c.put(bal[j].v);
+    words[0] = *username;
+    for (int j = 0; j < C; ++j) words[1 + j] = bal[j];
+    u64 h[4], sh[4];
+    hash(c, words.data(), C + 1, h);
+    for (int level = 0; level < levels; ++level) {
+        if (level == 0) {
+            for (int j = 0; j <= C; ++j) c.put(leaf[j].v);
+            for (int j = 0; j < C; ++j) sib[j] = leaf[1 + j];
+            hash(c, leaf, C + 1, sh);
+            for (int j = 0; j < C; ++j) {
+                range_check(c, cur[j].v, nbytes, inv256);
+                range_check(c, sib[j].v, nbytes, inv256);
+            }
+        } else {
+            const Fp4* pre = mid + (size_t)(level - 1) * (C + 2);
+            for (int j = 0; j < C + 2; ++j) c.put(pre[j].v);
+            for (int j = 0; j < C; ++j) sib[j] = pre[j];
+            hash(c, pre, C + 2, sh);
+            for (int j = 0; j < C; ++j) range_check(c, sib[j].v, nbytes, inv256);
+        }
+        const u64* bit = path[level].v;
+        c.put(bit);
+        // the swap region: both hashes and the bit copied in, then left, right
+        const bool swap = !FrM::is_zero(bit);
+        c.put(h); c.put(sh); c.put(bit);
+        memcpy(words[C].v, swap ? sh : h, 32);
+        memcpy(words[C + 1].v, swap ? h : sh, 32);
+        c.put(words[C].v); c.put(words[C + 1].v);
+        for (int j = 0; j < C; ++j) {
+            c.put(cur[j].v); c.put(sib[j].v);
+            FrM::add(cur[j].v, cur[j].v, sib[j].v);
+            c.put(cur[j].v);
+            words[j] = cur[j];
+        }
+        hash(c, words.data(), C + 2, h);
+    }
+}
+
+static inline void store(int64_t* limbs, size_t limb_stride, size_t at, const u64 v[4]) {
+    for (int i = 0; i < 16; ++i)
+        limbs[(size_t)i * limb_stride + at] = (int64_t)((v[i / 4] >> (16 * (i % 4))) & 0xFFFF);
+}
+
+struct Job {
+    const u8* inputs; const u8* blinds; size_t users; int levels, C, nbytes;
+    const int64_t* plan; size_t plan_len, ncols, n, usable; int64_t* limbs;
+    u64 inv256[4];
+};
+
+// users lo..hi; returns false where a user's cells do not number plan_len
+static bool fill_range(const Job& j, size_t lo, size_t hi) {
+    const size_t width = 1 + 2 * j.C + j.levels + 1 + (size_t)(j.levels - 1) * (j.C + 2);
+    const size_t nblind = j.n - j.usable;
+    const size_t limb_stride = j.users * j.ncols * j.n;
+    std::vector<Fp4> in(width);
+    Cells c;
+    c.v.reserve(j.plan_len);
+    for (size_t u = lo; u < hi; ++u) {
+        for (size_t i = 0; i < width; ++i) {
+            load4(in[i].v, j.inputs + (u * width + i) * 32);
+            FrM::mul(in[i].v, in[i].v, FR_R2);
+        }
+        c.v.clear();
+        user_cells(c, in.data(), j.levels, j.C, j.nbytes, j.inv256);
+        if (c.v.size() != j.plan_len) return false;
+        const size_t base = u * j.ncols * j.n;
+        for (size_t k = 0; k < j.plan_len; ++k) store(j.limbs, limb_stride, base + j.plan[k], c.v[k].v);
+        for (size_t col = 0; col < j.ncols; ++col)
+            for (size_t r = 0; r < nblind; ++r) {
+                u64 v[4];
+                load4(v, j.blinds + ((u * j.ncols + col) * nblind + r) * 32);
+                FrM::mul(v, v, FR_R2);
+                store(j.limbs, limb_stride, base + col * j.n + j.usable + r, v);
+            }
+    }
+    return true;
+}
+
+}  // namespace witness
+
+// 0 on success; -1 before poseidon_init; -2 where the synthesis' cells do not
+// number plan_len (the plan is not this circuit's).
+extern "C" int mst_witness_fill(const u8* inputs, const u8* blinds, size_t users, int levels,
+                                int n_currencies, int n_bytes, const int64_t* plan,
+                                size_t plan_len, size_t ncols, size_t n, size_t usable,
+                                int64_t* limbs) {
+    if (!POS_READY) return -1;
+    witness::Job job{inputs, blinds, users, levels, n_currencies, n_bytes, plan, plan_len,
+                     ncols, n, usable, limbs, {256, 0, 0, 0}};
+    FrM::mul(job.inv256, job.inv256, FR_R2);
+    FrM::inv(job.inv256, job.inv256, FR_R);
+    size_t nthreads = std::thread::hardware_concurrency();
+    if (nthreads < 1) nthreads = 1;
+    if (nthreads > users) nthreads = users;
+    std::vector<char> ok(nthreads, 1);
+    std::vector<std::thread> workers;
+    const size_t chunk = nthreads ? (users + nthreads - 1) / nthreads : 0;
+    for (size_t t = 0; t < nthreads; ++t) {
+        size_t lo = t * chunk, hi = lo + chunk < users ? lo + chunk : users;
+        if (lo >= hi) break;
+        workers.emplace_back([&job, &ok, t, lo, hi] { ok[t] = witness::fill_range(job, lo, hi); });
+    }
+    for (auto& w : workers) w.join();
+    for (char o : ok) if (!o) return -2;
+    return 0;
+}

@@ -14,7 +14,10 @@ domain's device -- U users' proofs at once, U = 1 for ``prove`` and U for
 runs eagerly through torch ops; commitments go through the device
 Pippenger (``ops/msm``, kernel K3). The host touches only scalars: the
 transcripts, the blinding draws (same order as the reference, so proofs
-are byte-identical) and the small r_j interpolations.
+are byte-identical) and the small r_j interpolations. A batch of
+``MstInclusionCircuit``s takes its advice from the key's witness plan
+(``models/witness``: one native fill straight into limbs); any other
+circuit runs its ``synthesize`` through the layouter, a user at a time.
 ``CIRCUITS_PROVE_TRACE=1`` prints each phase's wall time to stderr, each
 phase synchronised at its end; ``utils/tracing`` records the phases and
 the host work inside them without synchronising.
@@ -25,6 +28,7 @@ from __future__ import annotations
 import hashlib
 import os
 
+import numpy as np
 import torch
 
 from ..ops import field as F
@@ -34,7 +38,7 @@ from ..utils import poly_device as PD
 from ..utils import tracing as TR
 from ..utils.srs import ParamsKZG
 from ..utils.transcript import KeccakTranscript
-from .assignment import Assignment
+from . import witness
 from .keygen import DELTA, ProvingKey
 from .verifier import num_perm_sets, perm_chunk_len, rotation_sets
 
@@ -265,20 +269,15 @@ def _prove_users(params, pk, circuits, config, instances_list, rngs, transcript_
                     for v in col:
                         t.common_scalar(v)
                 ts.append(t)
-        advice_rows, inst_rows = [], []
-        for u, (circuit, instances, rng) in enumerate(zip(circuits, instances_list, rngs)):
-            with TR.span("synthesize", u):
-                asn = Assignment(cs, n, instances)
-                circuit.synthesize(config, asn)
-                advice = [list(col) for col in asn.advice]
-                inst_rows.append([list(col) for col in asn.instance])
-            with TR.span("blinding_draws", u):
-                for col in advice:
-                    for row in range(usable, n):
-                        col[row] = rng.next_field()
-            advice_rows.append(advice)
-        advice_dev = cols(advice_rows)
-        inst_dev = cols(inst_rows)
+        advice_dev = dom.limbs_to_device(
+            witness.advice_limbs(pk, config, circuits, instances_list, rngs, usable))
+        # the instance columns: each user's few values, the other rows 0
+        inst_limbs = np.zeros((NL, U, len(instances_list[0]), n), dtype=np.int64)
+        with TR.span("to_limbs"):
+            for u, instances in enumerate(instances_list):
+                for i, col in enumerate(instances):
+                    inst_limbs[:, u, i, : len(col)] = FT.to_mont_limbs(col)
+        inst_dev = dom.limbs_to_device(inst_limbs)
         with TR.span("dispatch"):
             fixed_dev, sigma_dev, st_coeff, st_ext, st_offsets = _static_transform(pk, dom, usable)
         # shared by every user: a size-1 user axis, never a copy

@@ -2,10 +2,11 @@
 
 Binds the C functions of ``csrc/fieldcc.cpp`` (host Pippenger ``g1_msm``,
 fixed-base muls for SRS setup, the Poseidon sponge, Fr batch inversion and
-keccak), the port's copy of the reference's host C++. It is compiled with
-portable flags (no ``-march=native``) into the port's build directory,
-under a name keyed by the source's hash, so a stale or foreign binary is
-never loaded and nothing tracked by git is written.
+keccak), the port's copy of the reference's host C++, and the port's own
+witness fill of the MstInclusion circuit (``mst_witness_fill``). It is
+compiled with portable flags (no ``-march=native``) into the port's build
+directory, under a name keyed by the source's hash, so a stale or foreign
+binary is never loaded and nothing tracked by git is written.
 
 The library is required: a missing compiler raises instead of falling back.
 """
@@ -25,7 +26,7 @@ from . import build
 
 SRC = Path(__file__).resolve().parent / "csrc" / "fieldcc.cpp"
 _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
-_ABI_VERSION = 5
+_ABI_VERSION = 6
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -73,6 +74,10 @@ def _configure(lib: ctypes.CDLL) -> None:
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = None
     lib.poseidon_hash_batch.restype = ctypes.c_int
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.mst_witness_fill.argtypes = [u8p, u8p, sz, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     i64p, sz, sz, sz, sz, i64p]
+    lib.mst_witness_fill.restype = ctypes.c_int
 
 
 def _init_poseidon(lib: ctypes.CDLL) -> None:
@@ -168,3 +173,34 @@ def poseidon_hash_batch(msgs, length: int) -> list[int]:
     """(n, L) canonical scalars -> n ConstantLength<L> Poseidon digests."""
     flat = [int(v) for row in msgs for v in row]
     return bytes_to_scalars(poseidon_hash_bytes(scalars_to_bytes(flat), length))
+
+
+def mst_witness_fill(inputs: np.ndarray, blinds: np.ndarray, shape: tuple[int, int, int],
+                     plan: np.ndarray, usable: int, out: np.ndarray) -> None:
+    """The MstInclusion circuit's advice for U users, into ``out``, a
+    (16, U, ncols, n) int64 array of Montgomery limbs (``csrc/fieldcc.cpp``).
+
+    ``inputs``: (U * width, 32) uint8, each user's canonical inputs in the
+    routine's order; ``blinds``: (U * ncols * (n - usable), 32) uint8, each
+    user's blinding scalars column by column; ``shape``: (levels,
+    n_currencies, n_bytes); ``plan``: int64 column * n + row of each cell
+    the synthesis assigns, in its order, every row below ``usable``."""
+    levels, ncur, nbytes = shape
+    nlimbs, users, ncols, n = out.shape
+    width = 1 + 2 * ncur + levels + 1 + (levels - 1) * (ncur + 2)
+    if (nlimbs != 16 or out.dtype != np.int64 or not out.flags.c_contiguous
+            or plan.dtype != np.int64 or not plan.flags.c_contiguous
+            or inputs.shape != (users * width, 32) or inputs.dtype != np.uint8
+            or blinds.shape != (users * ncols * (n - usable), 32) or blinds.dtype != np.uint8
+            or not 0 < usable <= n):
+        raise ValueError("mst_witness_fill: arrays do not match the shape")
+    if plan.size and (plan.min() < 0 or plan.max() >= ncols * n or (plan % n >= usable).any()):
+        raise ValueError("mst_witness_fill: the plan names a cell outside the usable rows")
+    inputs, blinds = np.ascontiguousarray(inputs), np.ascontiguousarray(blinds)
+    i64 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    rc = get().mst_witness_fill(_u8(inputs), _u8(blinds), users, levels, ncur, nbytes,
+                                i64(plan), plan.size, ncols, n, usable, i64(out))
+    if rc == -2:
+        raise ValueError("mst_witness_fill: the synthesis does not match the plan")
+    if rc != 0:
+        raise RuntimeError("mst_witness_fill: constants not initialised")

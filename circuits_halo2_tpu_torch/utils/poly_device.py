@@ -169,17 +169,17 @@ class Domain:
         """Host ints -> (16, len) Montgomery limbs."""
         with TR.span("to_limbs"):
             flat = FT.to_mont_limbs(values)
-        return self._copy(flat)
+        return self.limbs_to_device(flat)
 
     def cols_to_device(self, cols: list[list[int]]) -> torch.Tensor:
         """B same-length host columns -> (16, B, n) Montgomery."""
         with TR.span("to_limbs"):
             flat = FT.to_mont_limbs([v for col in cols for v in col])
-        return self._copy(flat.reshape(FT.NLIMBS, len(cols), len(cols[0])))
+        return self.limbs_to_device(flat.reshape(FT.NLIMBS, len(cols), len(cols[0])))
 
-    def _copy(self, limbs: np.ndarray) -> torch.Tensor:
-        """Host limbs to the domain's device (a copy that waits for the
-        stream's queued work, so a span of its own)."""
+    def limbs_to_device(self, limbs: np.ndarray) -> torch.Tensor:
+        """Host int64 limbs, any shape, to the domain's device (a copy that
+        waits for the stream's queued work, so a span of its own)."""
         if self.device.type == "cpu":
             return torch.as_tensor(limbs)
         with TR.span("h2d"):

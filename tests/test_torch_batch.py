@@ -78,8 +78,9 @@ def test_traced_batch_has_its_leaf_spans_inside_the_phases(traced_keccak_batch):
     """With tracing on, the proof bytes stay the JAX package's; every span
     but the Domain's first conversions lies inside one of the call's
     phases, the per-user spans carry users 0 and 1, each of phases 1-4
-    holds its layers' leaf spans, and the only count is the window
-    combine's host route."""
+    holds its layers' leaf spans (synthesis one span a call, the witness
+    plan's fill, with no user), and the counts are the witness plan's users
+    and the window combine's host route."""
     proofs, (spans, counts) = traced_keccak_batch
     assert proofs[0].hex() == FIX["keccak_vk_digest_proof"]
     roots = [s for s in spans if s.parent is None]
@@ -100,8 +101,9 @@ def test_traced_batch_has_its_leaf_spans_inside_the_phases(traced_keccak_batch):
         inside[top.name].add(s.name)
         if s.id not in parents:
             leaves[top.name].add(s.name)
-    for name in ("synthesize", "lookup_sort", "blinding_draws"):
+    for name in ("lookup_sort", "blinding_draws"):
         assert {s.user for s in spans if s.name == name} == {0, 1}
+    assert [s.user for s in spans if s.name == "synthesize"] == [None]
     assert {"transcript", "synthesize", "blinding_draws", "to_limbs", "msm_combine"} <= \
         leaves[PHASES[0]]
     assert {"from_limbs", "lookup_sort", "blinding_draws", "msm_combine", "transcript"} <= \
@@ -111,7 +113,8 @@ def test_traced_batch_has_its_leaf_spans_inside_the_phases(traced_keccak_batch):
     assert all("dispatch" in inside[p] for p in PHASES)
     # no kernel and no copy on the CPU: the window combines take the host
     # route, 16 commitments a proof of the two users
-    assert counts == {("msm_combine", "host"): {"commitments": 32}}
+    assert counts == {("msm_combine", "host"): {"commitments": 32},
+                      ("witness", "plan"): {"users": 2}}
 
 
 def test_batch_user1_equals_single_prove(setup, keccak_batch):
